@@ -2,18 +2,23 @@
 
 Same modules and class names as the JAX package; parameters carry the
 rosinality state-dict keys, so a `g_ema` loads with `load_state_dict(strict=True)`.
-The path covered so far: rosinality `.pt` checkpoint -> StyleGAN2 `Generator`
--> streaming `render()`. The fused bias + leaky-ReLU runs as a hand-written
-CUDA kernel (csrc/fused_bias_act.cu) on CUDA tensors.
+The paths covered so far: rosinality `.pt` checkpoint -> StyleGAN2 `Generator`
+-> streaming `render()`; and StyleGAN2 training without augmentation (D, lazy
+R1, G, lazy path length, lookahead, EMA) from MREC record shards. The fused
+bias + leaky-ReLU and its gradient run as hand-written CUDA kernels
+(csrc/fused_bias_act.cu) on CUDA tensors.
 
-  ops/       fused bias + leaky-ReLU (kernel + plain form), upfirdn2d, kernel build
-  models/    StyleGAN2 Generator and its blocks
+  ops/       fused bias + leaky-ReLU (kernels + plain forms, autograd Functions), upfirdn2d, kernel build
+  models/    StyleGAN2 Generator, Discriminator and their blocks
   io/        rosinality checkpoint loading, weights carried across from maua_tpu
   reactive/  Bend and Rewrite records
   render/    render() and the video writers
+  train/     losses, EMA, lookahead, the train step and its phases, checkpoints, the train CLI
+  data/      MREC record shards, synthetic datasets, the threaded loader
 
-Entry points: `maua_tpu_torch.io.load_generator(path, device=...)` and
-`maua_tpu_torch.render.render(generator, None, latents, noise, out, device=...)`.
+Entry points: `maua_tpu_torch.io.load_generator(path, device=...)`,
+`maua_tpu_torch.render.render(generator, None, latents, noise, out, device=...)`
+and `python -m maua_tpu_torch.train.cli --path SHARDS --no-augment [--device ...]`.
 """
 
 from .device import resolve_device

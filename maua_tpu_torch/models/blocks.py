@@ -1,10 +1,14 @@
-"""StyleGAN2 generator blocks in PyTorch (counterpart of
-maua_tpu/models/blocks.py:46-541).
+"""StyleGAN2 generator and discriminator blocks in PyTorch (counterpart of
+maua_tpu/models/blocks.py:46-627; the discriminator's `EqualConv2d`,
+`Downsample`, `ConvLayer`, `ResBlock` and `minibatch_stddev` run the native
+path only, no space-to-depth).
 
 Parameter and buffer names are the rosinality state-dict keys
 (`conv.weight` [1, O, I, k, k], `conv.modulation.weight` [out, in],
 `activate.bias`, `noise.weight`, `blur.kernel`, ...), so a rosinality `g_ema`
-loads with `load_state_dict(strict=True)`. The math follows the JAX blocks:
+or `d` loads with `load_state_dict(strict=True)`. A discriminator `ConvLayer`
+is a Sequential `[Blur?] EqualConv2d [FusedLeakyReLU?]`, so its keys are
+`convs.1.conv2.0.kernel`, `convs.1.conv2.1.weight`, `convs.1.conv2.2.bias`. The math follows the JAX blocks:
 `ModulatedConv2d` scales the input by the style, runs one batched conv with the
 shared weight, and scales the output by the demodulation factor, which is
 exact by linearity of the conv (no per-sample weights, no grouped conv).
@@ -15,8 +19,10 @@ Precision policy (maua_tpu/models/blocks.py:46-64, 283-291):
   than 64x64, which may run in TF32;
 * a bf16 synthesis dtype runs the convs in bf16, while the demodulation
   factors stay fp32.
-The Generator's forward sets the policy with `tf32(...)`, which restores the
-global switches when it leaves.
+The Generator's and the Discriminator's forwards set the policy with
+`tf32(...)`, which restores the global switches when it leaves. A backward
+runs after the forward has left, so training holds `tf32(False, False)` over
+each phase's forward and backward together (train/step.py).
 """
 
 from __future__ import annotations
@@ -60,11 +66,12 @@ class PixelNorm(nn.Module):
 
 
 class FusedLeakyReLU(nn.Module):
-    """Learned bias + scaled leaky-ReLU (`activate.bias` in the state dict)."""
+    """Learned bias + scaled leaky-ReLU (`activate.bias` in the state dict);
+    `bias=False` applies the activation alone."""
 
-    def __init__(self, channel: int):
+    def __init__(self, channel: int, bias: bool = True):
         super().__init__()
-        self.bias = nn.Parameter(torch.zeros(channel))
+        self.bias = nn.Parameter(torch.zeros(channel)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return fused_leaky_relu(x, self.bias)
@@ -100,6 +107,26 @@ class EqualLinear(nn.Module):
         return out if bias is None else out + bias.to(out.dtype)
 
 
+class EqualConv2d(nn.Module):
+    """Equalized-lr conv: weight [O, I, k, k] drawn N(0,1), applied with scale
+    1/sqrt(I*k*k), in the input's dtype."""
+
+    def __init__(
+        self, in_channel: int, out_channel: int, kernel_size: int, stride: int = 1, padding: int = 0,
+        bias: bool = True,
+    ):
+        super().__init__()
+        self.weight = nn.Parameter(torch.randn(out_channel, in_channel, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_channel)) if bias else None
+        self.scale = 1.0 / math.sqrt(in_channel * kernel_size**2)
+        self.stride = stride
+        self.padding = padding
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.conv2d(x, (self.weight * self.scale).to(x.dtype), stride=self.stride, padding=self.padding)
+        return out if self.bias is None else out + self.bias.to(out.dtype).reshape(1, -1, 1, 1)
+
+
 class Blur(nn.Module):
     """FIR blur through upfirdn2d; the kernel carries the upsample gain."""
 
@@ -124,6 +151,20 @@ class Upsample(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return upfirdn2d(x, self.kernel, up=self.factor, down=1, pad=self.pad)
+
+
+class Downsample(nn.Module):
+    """2x FIR downsample."""
+
+    def __init__(self, kernel: Sequence[int] = DEFAULT_BLUR_KERNEL, factor: int = 2):
+        super().__init__()
+        self.register_buffer("kernel", setup_filter(list(kernel)))
+        self.factor = factor
+        p = len(kernel) - factor
+        self.pad = ((p + 1) // 2, p // 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return upfirdn2d(x, self.kernel, up=1, down=self.factor, pad=self.pad)
 
 
 class ModulatedConv2d(nn.Module):
@@ -296,3 +337,73 @@ class ToRGB(nn.Module):
         if skip is not None:
             out = out + self.upsample(skip)
         return out
+
+
+class ConvLayer(nn.Sequential):
+    """Discriminator conv layer: [Blur + stride 2 if downsample] EqualConv2d
+    [FusedLeakyReLU if activate]. The conv carries a bias only when it is not
+    activated (the activation holds it)."""
+
+    def __init__(
+        self,
+        in_channel: int,
+        out_channel: int,
+        kernel_size: int,
+        downsample: bool = False,
+        blur_kernel: Sequence[int] = DEFAULT_BLUR_KERNEL,
+        bias: bool = True,
+        activate: bool = True,
+    ):
+        layers: list[nn.Module] = []
+        if downsample:
+            p = (len(blur_kernel) - 2) + (kernel_size - 1)
+            layers.append(Blur(blur_kernel, pad=((p + 1) // 2, p // 2)))
+            stride, padding = 2, 0
+        else:
+            stride, padding = 1, kernel_size // 2
+        layers.append(
+            EqualConv2d(in_channel, out_channel, kernel_size, stride=stride, padding=padding,
+                        bias=bias and not activate)
+        )
+        if activate:
+            layers.append(FusedLeakyReLU(out_channel, bias=bias))
+        super().__init__(*layers)
+
+
+class ResBlock(nn.Module):
+    """Discriminator residual block: two 3x3 ConvLayers (the second
+    downsamples) plus a 1x1 downsampling skip, summed and scaled by 1/sqrt(2)."""
+
+    def __init__(
+        self, in_channel: int, out_channel: int, blur_kernel: Sequence[int] = DEFAULT_BLUR_KERNEL,
+        use_skip: bool = True,
+    ):
+        super().__init__()
+        self.conv1 = ConvLayer(in_channel, in_channel, 3)
+        self.conv2 = ConvLayer(in_channel, out_channel, 3, downsample=True, blur_kernel=blur_kernel)
+        if use_skip:
+            self.skip = ConvLayer(in_channel, out_channel, 1, downsample=True, activate=False, bias=False)
+        self.use_skip = use_skip
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.conv2(self.conv1(x))
+        if self.use_skip:
+            out = (out + self.skip(x)) / math.sqrt(2.0)
+        return out
+
+
+def minibatch_stddev(x: torch.Tensor, group_size: int = 4, num_features: int = 1, eps: float = 1e-8) -> torch.Tensor:
+    """Append the cross-sample stddev feature map. Groups are taken along the
+    outer axis (`reshape(group, -1, ...)`): group member g of statistic j is
+    sample g * (B / group) + j, so an interleaved [f0, r0, f1, r1, ...] batch
+    whose B / group is even keeps fakes and reals apart. The group clamps to
+    the batch, and to the whole batch when it does not divide it."""
+    b, c, h, w = x.shape
+    group = min(b, group_size)
+    if b % group != 0:
+        group = b
+    y = x.reshape(group, -1, num_features, c // num_features, h, w)
+    y = torch.sqrt(y.var(dim=0, correction=0) + eps)
+    y = y.mean(dim=(2, 3, 4), keepdim=True).squeeze(2)  # [B / group, F, 1, 1]
+    y = y.repeat(group, 1, h, w)
+    return torch.cat([x, y], dim=1)

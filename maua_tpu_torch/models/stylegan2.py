@@ -1,4 +1,5 @@
-"""StyleGAN2 Generator in PyTorch (counterpart of maua_tpu/models/stylegan2.py:47-347).
+"""StyleGAN2 Generator and Discriminator in PyTorch (counterpart of
+maua_tpu/models/stylegan2.py:47-403).
 
 Mapping MLP, constant or latent-mapped input (`--noconst`), style mixing with
 `inject_index`, scalar or per-sample tensor truncation, per-layer noise
@@ -6,7 +7,8 @@ Mapping MLP, constant or latent-mapped input (`--noconst`), style mixing with
 `min_rgb_size`, activation maps, network-bend hooks at every layer, and the
 noise-buffer geometry of widescreen outputs. The module tree carries the
 rosinality state-dict keys (`style.1.weight`, `convs.3.conv.weight`,
-`to_rgbs.0.bias`, `noises.noise_0`, ...).
+`to_rgbs.0.bias`, `noises.noise_0`, ...; the Discriminator's `convs.0.0.weight`,
+`convs.1.conv1.0.weight`, `final_linear.1.bias`, ...).
 """
 
 from __future__ import annotations
@@ -20,12 +22,15 @@ from torch import nn
 from .blocks import (
     DEFAULT_BLUR_KERNEL,
     ConstantInput,
+    ConvLayer,
     EqualLinear,
     LatentInput,
     PixelNorm,
+    ResBlock,
     StyledConv,
     ToRGB,
     apply_bends,
+    minibatch_stddev,
     tf32,
 )
 
@@ -273,3 +278,58 @@ class Generator(nn.Module):
         if return_latents:
             return image, latent_fp32.float()
         return image, None
+
+
+class Discriminator(nn.Module):
+    """StyleGAN2 residual discriminator: from_rgb (`convs.0`), one ResBlock per
+    resolution down to 4x4 (`convs.1` ...), minibatch stddev, `final_conv`
+    and the two `final_linear` layers.
+
+    `dtype` is the conv compute dtype (float32 or bfloat16); the stddev
+    statistic and the final linears run in fp32 and the logits come back
+    fp32. Parameters stay fp32. The forward holds TF32 off (exact fp32)."""
+
+    def __init__(
+        self,
+        size: int = 1024,
+        channel_multiplier: int = 2,
+        blur_kernel: Sequence[int] = DEFAULT_BLUR_KERNEL,
+        use_skip: bool = True,
+        stddev_group: int = 4,
+        stddev_feat: int = 1,
+        channel_max: int = 512,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, got {dtype}")
+        channels = channel_map(channel_multiplier, channel_max)
+        log_size = int(math.log2(size))
+        self.size = size
+        self.dtype = dtype
+        self.stddev_group = stddev_group
+        self.stddev_feat = stddev_feat
+        blocks: list[nn.Module] = [ConvLayer(3, channels[size], 1)]
+        in_channel = channels[size]
+        for i in range(log_size, 2, -1):
+            out_channel = channels[2 ** (i - 1)]
+            blocks.append(ResBlock(in_channel, out_channel, blur_kernel, use_skip=use_skip))
+            in_channel = out_channel
+        self.convs = nn.Sequential(*blocks)
+        self.final_conv = ConvLayer(in_channel + stddev_feat, channels[4], 3)
+        self.final_linear = nn.Sequential(
+            EqualLinear(channels[4] * 4 * 4, channels[4], activation="fused_lrelu"),
+            EqualLinear(channels[4], 1),
+        )
+
+    def forward(self, x: torch.Tensor, return_hidden: bool = False):
+        """x [B, 3, size, size] -> logits [B, 1] (fp32); with `return_hidden`
+        also the last ResBlock's activation (in the compute dtype)."""
+        with tf32(conv=False, matmul=False):
+            hidden = self.convs(x.to(self.dtype))
+            batch = hidden.shape[0]
+            # the statistic in fp32: the variance of near-equal values cancels in bf16
+            out = minibatch_stddev(hidden.float(), self.stddev_group, self.stddev_feat).to(self.dtype)
+            out = self.final_conv(out).reshape(batch, -1).float()
+            out = self.final_linear(out)
+        return (out, hidden) if return_hidden else out

@@ -26,18 +26,30 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-# name -> (argtypes, restype) of each library's C entry point
+# library name -> {C entry point: (argtypes, restype)}
 _SIGNATURES = {
-    "fused_bias_act": (
-        [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, bias (or NULL), out
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,  # rows, cols, channels
-            ctypes.c_int, ctypes.c_int,  # bias_on_rows, dtype
-            ctypes.c_float, ctypes.c_float,  # slope, scale
-            ctypes.c_void_p,  # cudaStream_t
-        ],
-        ctypes.c_int,
-    ),
+    "fused_bias_act": {
+        "fused_bias_act": (
+            [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, bias (or NULL), out
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,  # rows, cols, channels
+                ctypes.c_int, ctypes.c_int,  # bias_on_rows, dtype
+                ctypes.c_float, ctypes.c_float,  # slope, scale
+                ctypes.c_void_p,  # cudaStream_t
+            ],
+            ctypes.c_int,
+        ),
+        "fused_bias_act_grad": (
+            [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # dy, y, dx
+                ctypes.c_int64,  # n, the element count
+                ctypes.c_int,  # dtype
+                ctypes.c_float, ctypes.c_float,  # slope, scale
+                ctypes.c_void_p,  # cudaStream_t
+            ],
+            ctypes.c_int,
+        ),
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -95,12 +107,13 @@ def build() -> dict[str, Path]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library `csrc/<name>.cu`, built if needed, with its C
-    signature declared."""
+    """The loaded library `csrc/<name>.cu`, built if needed, with the C
+    signatures of its entry points declared."""
     lib = _loaded.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build()[name]))
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = _SIGNATURES[name]
+        for fn_name, (argtypes, restype) in _SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes, fn.restype = argtypes, restype
         _loaded[name] = lib
     return lib

@@ -11,6 +11,14 @@ Same semantics as maua_tpu/ops/upfirdn2d.py:45-170 and its numpy oracle:
   out_size = (in_size * up + pad0 + pad1 - kernel_size) // down + 1
 
 Steps 3 and 4 are one depthwise `F.conv2d` with stride `down`.
+
+The gradient is an autograd Function whose backward is upfirdn2d again (the
+flipped kernel, up and down swapped, the padding that maps the output grid
+back onto the input), so it can be differentiated to any order and the
+kernel, a fixed FIR filter, never gets a gradient. Left to autograd, the
+double backward of the depthwise conv (R1 through D, the path penalty
+through G) also computes the filter's gradient with one convolution per
+channel, whether or not anything needs it.
 """
 
 from __future__ import annotations
@@ -56,9 +64,36 @@ def upfirdn2d(x: torch.Tensor, kernel: torch.Tensor, up=1, down=1, pad=(0, 0)) -
     `_as_pad`. Returns [N, C, (H*up_y + pad_y0 + pad_y1 - kh)//down_y + 1, ...]."""
     if x.ndim != 4:
         raise ValueError(f"expected [N, C, H, W] input, got shape {tuple(x.shape)}")
-    up_y, up_x = _as_pair(up)
-    down_y, down_x = _as_pair(down)
-    pad_x0, pad_x1, pad_y0, pad_y1 = _as_pad(pad)
+    return _Upfirdn2d.apply(x, kernel.detach(), _as_pair(up), _as_pair(down), _as_pad(pad))
+
+
+class _Upfirdn2d(torch.autograd.Function):
+    """dx = upfirdn2d(dy, flipped kernel, up=down, down=up, pad=p), with p
+    the padding that places the output grid back on the input grid."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, up, down, pad):
+        ctx.save_for_backward(kernel)
+        ctx.geometry = (x.shape[2:], up, down, pad)
+        return _upfirdn2d(x, kernel, up, down, pad)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (kernel,) = ctx.saved_tensors
+        (h, w), (up_y, up_x), (down_y, down_x), (pad_x0, _, pad_y0, _) = ctx.geometry
+        kh, kw = kernel.shape
+        oh, ow = dy.shape[2:]
+        pad = (
+            kw - pad_x0 - 1, w * up_x - ow * down_x + pad_x0 - up_x + 1,
+            kh - pad_y0 - 1, h * up_y - oh * down_y + pad_y0 - up_y + 1,
+        )
+        dx = _Upfirdn2d.apply(dy, torch.flip(kernel, (0, 1)), (down_y, down_x), (up_y, up_x), pad)
+        return dx, None, None, None, None
+
+
+def _upfirdn2d(x, kernel, up, down, pad):
+    (up_y, up_x), (down_y, down_x) = up, down
+    pad_x0, pad_x1, pad_y0, pad_y1 = pad
     n, c, h, w = x.shape
     kh, kw = kernel.shape
 

@@ -97,6 +97,32 @@ def test_upfirdn2d_matches_jax_and_oracle(case):
     np.testing.assert_allclose(got, oracle, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("case", sorted(UPFIRDN_CASES))
+def test_upfirdn2d_gradients_match_jax(case):
+    """First order and the grad of a grad-norm through upfirdn2d's autograd
+    Function, with an asymmetric kernel, against jax.grad of the JAX op:
+    rtol = atol = 1e-4 (fp32 sums in other orders)."""
+    import jax
+
+    cfg = dict(UPFIRDN_CASES[case])
+    cfg.pop("gain")
+    rng = np.random.RandomState(2)
+    x = rng.randn(2, 3, 8, 6).astype(np.float32)
+    k = (np.arange(12, dtype=np.float32).reshape(3, 4) + 1) / 78
+
+    def loss(f):
+        return lambda x: (f(x) ** 3).sum()
+
+    xt = torch.from_numpy(x).requires_grad_()
+    (g,) = torch.autograd.grad(loss(lambda v: upfirdn2d(v, torch.from_numpy(k), **cfg))(xt), xt, create_graph=True)
+    (gg,) = torch.autograd.grad((g**2).sum(), xt)
+    jl = loss(lambda v: jax_upfirdn2d(v, jnp.asarray(k), **cfg))
+    want_g = jax.grad(jl)(jnp.asarray(x))
+    want_gg = jax.grad(lambda v: jnp.sum(jax.grad(jl)(v) ** 2))(jnp.asarray(x))
+    np.testing.assert_allclose(g.detach().numpy(), np.asarray(want_g), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(gg.numpy(), np.asarray(want_gg), rtol=1e-4, atol=1e-4)
+
+
 def test_setup_filter_matches_jax():
     for taps, kw in (([1, 3, 3, 1], {}), ([1, 3, 3, 1], {"gain": 4.0}), ([1, 2, 1], {"normalize": False})):
         np.testing.assert_allclose(

@@ -1,7 +1,8 @@
 """maua_tpu_torch stands alone and fails loudly without a card: importing
-every module pulls in no jax, flax or maua_tpu; the entry points raise
-RuntimeError when they would need CUDA and there is none; chip_smoke.py fails
-without a card and outside the repo."""
+every module (the training and data subpackages included) pulls in no jax,
+flax or maua_tpu; the entry points raise RuntimeError when they would need
+CUDA and there is none; chip_smoke.py fails without a card and outside the
+repo."""
 
 import os
 import shutil
@@ -15,6 +16,8 @@ import torch
 from maua_tpu_torch.io import load_generator
 from maua_tpu_torch.models import Generator
 from maua_tpu_torch.render import render
+from maua_tpu_torch.train import init_train_state, make_train_config
+from maua_tpu_torch.train.cli import build_parser, train_loop
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -26,7 +29,7 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "maua_tpu"))
-print(len(names), bad)
+print(len(names), ",".join(names), bad)
 """
 
 
@@ -43,8 +46,10 @@ def test_package_imports_no_jax_or_maua_tpu():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    n_modules, bad = out.stdout.strip().split(" ", 1)
-    assert int(n_modules) >= 17
+    n_modules, names, bad = out.stdout.strip().split(" ", 2)
+    assert int(n_modules) >= 28
+    for sub in ("train.step", "train.cli", "train.checkpoint", "data.loader", "data.records", "data.synthetic"):
+        assert f"maua_tpu_torch.{sub}" in names.split(","), sub
     assert bad == "[]", f"maua_tpu_torch imported {bad}"
 
 
@@ -65,6 +70,21 @@ def test_render_without_device_needs_cuda(tmp_path):
     latents = np.zeros((2, gen.n_latent, 16), np.float32)
     with pytest.raises(RuntimeError, match="CUDA"):
         render(gen, None, latents, [], str(tmp_path / "x.mp4"))
+
+
+def test_init_train_state_without_device_needs_cuda():
+    _no_cuda()
+    cfg = make_train_config(size=16, batch_size=4, channel_max=32, augment=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_train_state(cfg)
+
+
+def test_train_loop_without_device_needs_cuda(tmp_path):
+    _no_cuda()
+    args = build_parser().parse_args(["--path", str(tmp_path), "--size", "16", "--no-augment", "--run_dir", str(tmp_path / "run")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_loop(args)
+    assert not (tmp_path / "run").exists()
 
 
 def _run_smoke(cwd):
