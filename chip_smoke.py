@@ -38,7 +38,21 @@ Phases, each printing JSON lines:
      render(); R1's gradients with upfirdn2d's autograd Function against
      autograd of its depthwise conv (`r1_upfirdn2d_autograd`, fp32);
      torch.profiler over one step with R1 and the path penalty and over one
-     plain step.
+     plain step;
+  7. generate(), card against CPU (`generate_card_vs_cpu`): on a 20 s track
+     made from a numpy seed, the onset function, the default plugin's onset
+     envelopes, chroma and latents (latent file set), every bend transform,
+     and one generate() at 256^2 full width with numpy noise and truncation 1;
+  8. generate() at full width (`generate_preprocess`, `generate_main_path`):
+     (a) the default plugin over a 180 s track at 30 fps, seconds per
+     function, timeline bytes, peak memory and the staging round trip;
+     (b) generate() of a 12 s window of the FFHQ-1024 configuration at batch
+     8, truncation 0.75, a translate bend on layer 4 driven by the high
+     onsets; (c) the tauceti example plugin at out_size 1920 for 2 s. The
+     counters are set to 0 just before (b) and (c) and read just after: 8
+     (generate_latents) + 8 if truncated (mean_latent) + 17 per batch
+     forward launches. Then the forward kernel against its plain version at
+     the launch shapes of (b) and (c) not held before (`kernel_generate`).
 The line before the last lists both kernels (`kernels`); the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before it; without
 a CUDA card, or without the package beside this file, the script fails at
@@ -48,6 +62,8 @@ once.
 from __future__ import annotations
 
 import contextlib
+import importlib
+import io
 import json
 import math
 import os
@@ -602,8 +618,6 @@ def phase_train_card_vs_cpu():
 
 
 def phase_train_main_path(tmp: str) -> dict:
-    import io
-
     from maua_tpu_torch.data.synthetic import write_synth_shards
     from maua_tpu_torch.io import load_generator
     from maua_tpu_torch.ops import fused_act
@@ -802,6 +816,345 @@ def profile_train_step(step_fn, state, u8, cfg, gen_draws, label: str, step: int
     return out
 
 
+# ---------------------------------------------------------------- phases 7, 8: generate()
+SR = 22050
+GEN_SIZE, TRACK_S = 1024, 180.0  # the FFHQ-1024 checkpoint of phase 4; the whole track of (a)
+
+
+def synth_track(seconds: float, seed: int, bpm: float = 120.0) -> np.ndarray:
+    """A mono track at 22050 Hz from a numpy seed: a two-note chord that
+    changes every 10 s, a decaying 55 Hz kick and a 1.5 kHz click on
+    alternate beats at `bpm`, and a little white noise."""
+    n = int(seconds * SR)
+    t = np.arange(n) / SR
+    chords = [(440.0, 659.25), (523.25, 784.0), (392.0, 587.33), (349.23, 523.25)]
+    y = np.zeros(n)
+    seg = 10 * SR
+    for i, s in enumerate(range(0, n, seg)):
+        f1, f2 = chords[i % len(chords)]
+        y[s : s + seg] = 0.1 * np.sin(2 * np.pi * f1 * t[s : s + seg]) + 0.06 * np.sin(2 * np.pi * f2 * t[s : s + seg])
+    period = int(SR * 60.0 / bpm)
+    kick = 0.6 * np.sin(2 * np.pi * 55.0 * np.arange(4000) / SR) * np.exp(-np.arange(4000) / 800.0)
+    click = np.hanning(200) * np.sin(2 * np.pi * 1500.0 * np.arange(200) / SR)
+    for k, s in enumerate(range(period // 4, n - 4000, period)):
+        if k % 2 == 0:
+            y[s : s + 4000] += kick
+        else:
+            y[s : s + 200] += click
+    y += 0.003 * np.random.default_rng(seed).standard_normal(n)
+    return y.astype(np.float32)
+
+
+def write_wav(path: str, y: np.ndarray) -> str:
+    import scipy.io.wavfile
+
+    scipy.io.wavfile.write(path, SR, (np.clip(y, -1.0, 1.0) * 32767).astype(np.int16))
+    return path
+
+
+@contextlib.contextmanager
+def capture_frames(frames: list):
+    """render()'s writer replaced by a sink that keeps the uint8 frames."""
+    import maua_tpu_torch.render.frames as frames_mod
+
+    class Sink:
+        def __init__(self, output_file, width, height, fps, **kw):
+            self.shape = (height, width, 3)
+
+        def write(self, frame):
+            require(frame.shape == self.shape, f"frame {frame.shape} != {self.shape}")
+            frames.append(np.array(frame))
+
+        def close(self):
+            pass
+
+    real = frames_mod.VideoWriter
+    frames_mod.VideoWriter = Sink
+    try:
+        yield
+    finally:
+        frames_mod.VideoWriter = real
+
+
+def numpy_noise(height, width, scale, num_scales, args):
+    """get_noise from a numpy seed: the same timelines on every device."""
+    if width > 64:
+        return None
+    return np.random.default_rng(scale).standard_normal((args.n_frames, 1, height, width)).astype(np.float32)
+
+
+def plugin_args(audio: np.ndarray, device: str, fps: float = 30.0):
+    import argparse
+
+    return argparse.Namespace(audio=torch.from_numpy(audio).to(device), sr=SR, duration=len(audio) / SR,
+                              n_frames=int(round(len(audio) / SR * fps)), fps=fps)
+
+
+def phase_generate_card_vs_cpu(tmp: str) -> None:
+    """generate()'s analysis and a whole generate() at 256^2, card against CPU
+    in exact fp32 (TF32 off): the onset function on the 20 s track (max abs
+    <= 1e-3 x its max), the default plugin's onset envelopes, chroma and
+    latents (max abs <= 1e-3), every bend transform (max abs <= 1e-5), and
+    the frames of generate() with a latent file, numpy noise and truncation
+    1, so that no device RNG is involved (within 1 uint8 level). The track's
+    kick keeps the low band's percussive part from falling silent, where the
+    onset function's modified KL term would divide rounding noise by
+    rounding noise."""
+    import maua_tpu_torch.audio as ar
+    from maua_tpu_torch.models.blocks import tf32
+    from maua_tpu_torch.pipeline import defaults, generate
+    from maua_tpu_torch.reactive import add_noise_bend, load_latents, pad_bend, rotate_bend, translate_bend, zoom_bend
+
+    onsets_mod = importlib.import_module("maua_tpu_torch.audio.onsets")
+    wav = write_wav(os.path.join(tmp, "track20.wav"), synth_track(20.0, seed=5))
+    audio = ar.load_audio(wav, cache=False)[0]
+    latent_file = os.path.join(tmp, "selection.npy")
+    np.save(latent_file, 0.5 * np.random.default_rng(6).standard_normal((12, 14, STYLE_DIM)).astype(np.float32))  # n_latent of 256^2
+    ar.set_SMF(1.0)
+    out = {}
+
+    with tf32(conv=False, matmul=False):
+        for name, band in (("lo", dict(fmax=150.0)), ("hi", dict(fmin=500.0))):
+            a = onsets_mod.madmom_onset_ensemble(torch.from_numpy(audio).cuda(), sr=SR, **band).cpu()
+            b = onsets_mod.madmom_onset_ensemble(torch.from_numpy(audio), sr=SR, **band)
+            out[f"onset_function_{name}_rel"] = ((a - b).abs().max() / b.abs().max()).item()
+            require(out[f"onset_function_{name}_rel"] <= 1e-3, f"onset function {name}: {out[f'onset_function_{name}_rel']}")
+
+        res = {}
+        for dev in ("cpu", "cuda"):
+            ar.set_device(dev)
+            args = plugin_args(audio, dev)
+            defaults.initialize(args)
+            chroma = ar.chroma(args.audio, SR, args.n_frames)
+            latents = defaults.get_latents(selection=load_latents(latent_file), args=args)
+            res[dev] = dict(lo_onsets=args.lo_onsets.cpu(), hi_onsets=args.hi_onsets.cpu(), chroma=chroma.cpu(),
+                            latents=latents.cpu())
+        for k in res["cpu"]:
+            out[k] = (res["cuda"][k] - res["cpu"][k]).abs().max().item()
+            require(out[k] <= 1e-3, f"default plugin {k}: card vs CPU max abs {out[k]}")
+
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((8, 512, 8, 16)).astype(np.float32)  # layer 4 of a widescreen 1920 render
+    mod = rng.uniform(0, 1, 8).astype(np.float32)
+    bends = {
+        "translate": translate_bend(4, mod),
+        "translate_noise": translate_bend(4, mod, rng.standard_normal((1, 1, 8, 80)).astype(np.float32)),
+        "zoom": zoom_bend(4, 0.5 + mod),
+        "rotate": rotate_bend(4, 90 * mod),
+        "add_noise": add_noise_bend(4, rng.standard_normal((1, 1, 8, 16)).astype(np.float32), mod),
+        "pad_edge": pad_bend(0),
+        "pad_reflect": pad_bend(0, (3, 5, 9, 1), "reflect"),
+    }
+    bend_err = {}
+    for name, b in bends.items():
+        got = b.transform(torch.from_numpy(x).cuda(), torch.from_numpy(mod).cuda()).cpu()
+        want = b.transform(torch.from_numpy(x), torch.from_numpy(mod))
+        bend_err[name] = (got - want).abs().max().item()
+        require(bend_err[name] <= 1e-5, f"bend {name}: card vs CPU max abs {bend_err[name]}")
+
+    frames = {}
+    window = dict(offset=4.0, duration=2.0)
+    for dev in ("cpu", "cuda"):
+        frames[dev] = []
+        with capture_frames(frames[dev]), contextlib.redirect_stdout(io.StringIO()):
+            generate(os.path.join(tmp, "g256.pt"), wav, initialize=defaults.initialize, get_noise=numpy_noise,
+                     latent_file=latent_file, G_res=256, out_size=256, fps=4, batch=4, truncation=1.0,
+                     output_file=os.path.join(tmp, f"g256_{dev}.mp4"), device=dev, **window)
+    a, b = (np.stack(frames[d]).astype(np.int16) for d in ("cuda", "cpu"))
+    require(a.shape == b.shape == (8, 256, 256, 3), f"generate frames {a.shape} / {b.shape}")
+    frame_err = int(np.abs(a - b).max())
+    require(frame_err <= 1 and b.std() > 0, f"generate() at 256^2: card vs CPU frames differ by {frame_err} levels")
+    emit(phase="generate_card_vs_cpu", track_seconds=20, precision="exact fp32", max_abs_err=out, bend_max_abs_err=bend_err,
+         generate_size=256, generate_frames=len(frames["cuda"]), generate_max_level_diff=frame_err,
+         tolerance="onset function 1e-3 x max; envelopes, chroma, latents 1e-3; bends 1e-5; frames 1 level")
+
+
+def timed(fn):
+    """(result, seconds) of fn() on the host clock, ending in a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def staging_seconds(latents, noise) -> float:
+    """render()'s timeline staging, alone: every timeline to host numpy and
+    back to the card (render/frames.py `_host`, then `stage`)."""
+    from maua_tpu_torch.render.frames import _host
+
+    def round_trip():
+        return [torch.from_numpy(_host(x)).cuda() for x in [latents, *noise] if x is not None]
+
+    return timed(round_trip)[1]
+
+
+def preprocess_breakdown(args) -> dict:
+    """Seconds of the default plugin's stages on the card, one at a time."""
+    import maua_tpu_torch.audio as ar
+    from maua_tpu_torch.pipeline.defaults import _draw
+
+    hpss, onsets_mod, chroma_mod = (importlib.import_module(f"maua_tpu_torch.audio.{m}") for m in ("hpss", "onsets", "chroma"))
+    y = args.audio
+    perc, out = {}, {}
+    perc["percussive"], out["percussive"] = timed(lambda: hpss.percussive(y, margin=8.0))
+    _, out["madmom_onset_ensemble"] = timed(lambda: onsets_mod.madmom_onset_ensemble(perc["percussive"], sr=SR, fmax=150.0))
+    _, out["onsets"] = timed(lambda: ar.onsets(y, SR, args.n_frames, fmax=150, smooth=5, clip=97, power=2))
+    harm, out["harmonic"] = timed(lambda: hpss.harmonic(y, margin=16.0))
+    _, out["pseudo_cqt"] = timed(lambda: chroma_mod.pseudo_cqt(harm, sr=SR))
+    raw, out["chroma_cens"] = timed(lambda: chroma_mod.chroma_cens(harm, sr=SR))
+    _, out["nn_filter_cosine"] = timed(lambda: chroma_mod.nn_filter_cosine(raw))
+    _, out["chroma"] = timed(lambda: ar.chroma(y, SR, args.n_frames))
+    draws, out["draw_256"] = timed(lambda: _draw(256, 256, 16, args.n_frames, y.device))
+    _, out["gaussian_filter_sigma128_256"] = timed(lambda: ar.gaussian_filter(draws[1], 128))
+    _, out["gaussian_filter_sigma5_256"] = timed(lambda: ar.gaussian_filter(draws[0], 5))
+    return out
+
+
+def phase_generate_main_path(tmp: str) -> dict:
+    """generate() at full width: (a) the default plugin over a 180 s track,
+    (b) generate() of a 12 s window with a translate bend, (c) the tauceti
+    plugin at 1920 for 2 s; the forward kernel's launches counted in (b) and
+    (c) and checked against the counts derived from the structure."""
+    import maua_tpu_torch.audio as ar
+    from maua_tpu_torch import examples
+    from maua_tpu_torch.models.blocks import tf32
+    from maua_tpu_torch.ops import fused_act
+    from maua_tpu_torch.pipeline import defaults, generate, get_noise_range
+    from maua_tpu_torch.pipeline.cli import load_plugin
+    from maua_tpu_torch.reactive import translate_bend
+
+    gen_mod = importlib.import_module("maua_tpu_torch.pipeline.generate")  # the package exports a function of that name
+    ckpt = os.path.join(tmp, f"g{GEN_SIZE}.pt")
+    wav = write_wav(os.path.join(tmp, "track.wav"), synth_track(TRACK_S, seed=8))
+    per_batch = 2 * (int(math.log2(GEN_SIZE)) - 2) + 1  # StyledConv activations of one forward from W+
+    results = {}
+
+    # ---- (a) the default plugin over the whole track, twice: the first run
+    # pays cuFFT's plans and cuDNN's set-up for the track's sizes ----
+    audio = ar.load_audio(wav, cache=False)[0]
+    ar.set_SMF(1.0)
+    ar.set_device("cuda")
+    sel = torch.from_numpy(0.5 * np.random.default_rng(9).standard_normal((12, 18, STYLE_DIM)).astype(np.float32)).cuda()
+    for run in ("first", "repeat"):
+        args = plugin_args(audio, "cuda")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with tf32(conv=False, matmul=False):
+            _, init_s = timed(lambda: defaults.initialize(args))
+            latents, latents_s = timed(lambda: defaults.get_latents(selection=sel, args=args))
+            noise, noise_s = [], {}
+            lo, hi, side = get_noise_range(GEN_SIZE, GEN_SIZE)
+            for scale in range(lo, hi):
+                size = 2 ** side(scale)
+                n, s = timed(lambda: defaults.get_noise(height=size, width=size, scale=scale - lo, num_scales=hi - lo, args=args))
+                noise.append(n)
+                noise_s[f"{scale - lo}:{size}"] = s
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            stage_s = staging_seconds(latents, noise)
+            breakdown = preprocess_breakdown(args) if run == "repeat" else None
+        timeline_bytes = latents.numel() * 4 + sum(0 if n is None else n.numel() * 4 for n in noise)
+        require(all(bool(torch.isfinite(x).all()) for x in [latents, *[n for n in noise if n is not None]]),
+                "(a) finite timelines")
+        results[f"a_{run}"] = dict(initialize_s=init_s, get_latents_s=latents_s, get_noise_s=sum(noise_s.values()),
+                                   preprocess_s=init_s + latents_s + sum(noise_s.values()), timeline_bytes=timeline_bytes,
+                                   peak_memory_gb=peak_gb, staging_round_trip_s=stage_s)
+        emit(phase="generate_preprocess", run=run, track_seconds=TRACK_S, fps=30, n_frames=args.n_frames,
+             **results[f"a_{run}"], get_noise_s_by_layer=noise_s, breakdown_s=breakdown)
+        del args, latents, noise
+    del sel
+    torch.cuda.empty_cache()
+
+    # ---- (b), (c): generate() end to end, the forward kernel's launches counted ----
+    calls = {}
+
+    def timed_render(*a, **kw):
+        calls["render_start"] = time.perf_counter()
+        calls["timelines"] = (kw["latents"], kw["noise"])
+        out = real_render(*a, **kw)
+        calls["render_s"] = time.perf_counter() - calls["render_start"]
+        return out
+
+    real_render = gen_mod.render
+    CountingWriter = install_counting_writer()
+    runs = {
+        "b": dict(offset=60.0, duration=12.0, batch=8, truncation=0.75, out_size=GEN_SIZE,
+                  get_bends=lambda args: [translate_bend(4, modulation=args.hi_onsets)]),
+        "c": dict(offset=60.0, duration=2.0, batch=8,
+                  **{**load_plugin(os.path.join(os.path.dirname(examples.__file__), "tauceti.py"))[0], "out_size": 1920}),
+    }
+    shapes = {}
+    gen_mod.render = timed_render
+    try:
+        for label, kw in runs.items():
+            n_frames = int(round(kw["duration"] * 30))
+            batches = -(-n_frames // kw["batch"])
+            # generate_latents maps 12 z (8 launches); mean_latent only when truncated (8); 17 per render batch
+            expected = N_MLP + (N_MLP if kw.get("truncation", 1.0) != 1.0 else 0) + per_batch * batches
+            CountingWriter.written = []
+            torch.cuda.synchronize()
+            fused_act.launches = fused_act.grad_launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                fwd, _ = record_launch_shapes(lambda: generate(ckpt, wav, fps=30, output_file=os.path.join(tmp, f"gen_{label}.mp4"),
+                                                               device="cuda", **kw))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = fused_act.launches
+            shapes[label] = fwd
+            require(launches == expected, f"({label}) fused_bias_act launched {launches} times, expected {expected}")
+            require(fused_act.grad_launches == 0, f"({label}) generate launched the gradient kernel")
+            require(len(CountingWriter.written) == n_frames and min(CountingWriter.written) > 0,
+                    f"({label}) {len(CountingWriter.written)} frames written")
+            latents, noise = calls["timelines"]
+            results[label] = dict(frames=n_frames, batch=kw["batch"], out_size=kw["out_size"], launches=launches,
+                                  expected_launches=expected, wall_s=wall, frames_per_s=n_frames / wall,
+                                  preprocess_s=calls["render_start"] - t0, render_s=calls["render_s"],
+                                  render_fps=n_frames / calls["render_s"], staging_round_trip_s=staging_seconds(latents, noise),
+                                  timeline_bytes=latents.numel() * 4 + sum(0 if n is None else n.numel() * 4 for n in noise),
+                                  writer=CountingWriter.backend_used)
+            emit(phase="generate_main_path", run=label, size=GEN_SIZE, style_dim=STYLE_DIM, n_mlp=N_MLP,
+                 channel_multiplier=CHANNEL_MULTIPLIER, **results[label])
+            calls.clear()
+            torch.cuda.empty_cache()
+    finally:
+        gen_mod.render = real_render
+    results["shapes"] = shapes
+    return results
+
+
+def phase_kernels_generate(shapes: dict) -> dict:
+    """The forward kernel at every launch shape of generate() runs (b) and (c)
+    that the render phase did not already hold: kernel vs plain, fp32."""
+    from collections import Counter
+
+    from maua_tpu_torch.ops.fused_act import fused_bias_act, fused_leaky_relu_plain
+
+    seen = {s for s, _ in render_batch_shapes(8)} | {(8, 512), (16384, 512)}
+    counts = Counter()
+    for fwd in shapes.values():
+        counts.update(fwd)
+    rows = []
+    for (shape, dtype, with_bias), n in sorted(counts.items()):
+        if shape in seen:
+            continue
+        seen.add(shape)
+        g = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn(shape, generator=g, device="cuda")
+        b = torch.randn(shape[1] if len(shape) >= 3 else shape[-1], generator=g, device="cuda") if with_bias else None
+        got, want = fused_bias_act(x, b), fused_leaky_relu_plain(x, b)
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+        moved = 2 * x.numel() * 4 + (0 if b is None else 4 * b.numel())
+        rows.append(dict(shape=list(shape), launches=n, max_abs_err=(got - want).abs().max().item(),
+                         ms=fast_ms(lambda: fused_bias_act(x, b), x.numel()),
+                         plain_ms=fast_ms(lambda: fused_leaky_relu_plain(x, b), x.numel()),
+                         bound_ms=moved / HBM_BYTES_PER_S * 1e3))
+        del x, b, got, want
+        torch.cuda.empty_cache()
+    emit(phase="kernel_generate", kernel="fused_bias_act", dtype="float32", shapes=rows)
+    return {"shapes": rows}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card", file=sys.stderr)
@@ -830,7 +1183,11 @@ def main() -> int:
         results = phase_main_path(tmp)
         phase_train_card_vs_cpu()
         train = phase_train_main_path(tmp)
+        with contextlib.chdir(tmp):  # load_audio's and generate()'s workspace/
+            phase_generate_card_vs_cpu(tmp)
+            gen = phase_generate_main_path(tmp)
     per_step = phase_kernels_train(train["shapes"])
+    phase_kernels_generate(gen["shapes"])
 
     emit(phase="kernel_render_batch_fp32", kernel="fused_bias_act", render_launches=results["fp32_exact"]["launches"],
          **{k: per_batch["float32"][k] for k in ("ms", "plain_ms", "bound_ms")})
