@@ -39,11 +39,30 @@ Phases, each printing JSON lines:
      autograd of its depthwise conv (`r1_upfirdn2d_autograd`, fp32);
      torch.profiler over one step with R1 and the path penalty and over one
      plain step;
-  7. generate(), card against CPU (`generate_card_vs_cpu`): on a 20 s track
+  7. ADA, card against CPU (`augment_card_vs_cpu`): the conv, matmul,
+     1x-grid matmul and fft warps and the colour matrix at the fused D batch
+     of the main path ([24, 3, 256, 256] fp32, one draw at p = 0.5), values
+     and input gradients within 1e-4; the fft warp's dftmm shear against its
+     fft shear on the card in fp32 and bf16;
+  8. ADA times (`augment_times`): each warp forward and forward + backward
+     at [24, 3, 256, 256] in fp32 and bf16, the fft warp with either shear,
+     and the whole augment at 1024^2, batch 8;
+  9. ADA training, card against CPU (`train_ada_card_vs_cpu`): one D, ADA
+     and G update at 32^2 with the fft warp at p = 0.5, alone, with bCR and
+     with the contrastive regularizer (momentum 0.99, queue 16);
+ 10. the ADA training path at full width (`train_ada_main_path`): PNGs ->
+     the port's prepare_data -> raw shards -> the train CLI's default
+     configuration (ADA on, the fft warp) at 256^2, batch 12: (a) fp32 and
+     bf16 at p = 0.5, 8 steps each, launches per step checked against the
+     structure; (b) bf16 with adaptive p, 24 steps, p against ada_adjust_p
+     recomputed on the host from the logged sign sums; (c) bf16 with bCR,
+     contrastive and MoCo, 4 steps; profiles of an R1 + path step with ADA
+     and the fft warp's share (`ada_warp_share`);
+ 11. generate(), card against CPU (`generate_card_vs_cpu`): on a 20 s track
      made from a numpy seed, the onset function, the default plugin's onset
      envelopes, chroma and latents (latent file set), every bend transform,
      and one generate() at 256^2 full width with numpy noise and truncation 1;
-  8. generate() at full width (`generate_preprocess`, `generate_main_path`):
+ 12. generate() at full width (`generate_preprocess`, `generate_main_path`):
      (a) the default plugin over a 180 s track at 30 fps, seconds per
      function, timeline bytes, peak memory and the staging round trip;
      (b) generate() of a 12 s window of the FFHQ-1024 configuration at batch
@@ -53,7 +72,8 @@ Phases, each printing JSON lines:
      (generate_latents) + 8 if truncated (mean_latent) + 17 per batch
      forward launches. Then the forward kernel against its plain version at
      the launch shapes of (b) and (c) not held before (`kernel_generate`).
-The line before the last lists both kernels (`kernels`); the last line is
+The line before the last lists both kernels (`kernels`, with their launches
+in the fp32 ADA run (a)); the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before it; without
 a CUDA card, or without the package beside this file, the script fails at
 once.
@@ -416,8 +436,9 @@ TRAIN_SIZE, TRAIN_BATCH, TRAIN_STEPS = 256, 12, 8
 def train_config(bf16: bool, **over):
     from maua_tpu_torch.train import make_train_config
 
+    # ada_warp_method: what the CLI's `--ada_warp auto` resolves to on the card
     kw = dict(size=TRAIN_SIZE, batch_size=TRAIN_BATCH, channel_multiplier=CHANNEL_MULTIPLIER, channel_max=512,
-              constant_input=True, augment=False, lookahead=True, bf16=bf16)
+              constant_input=True, augment=False, lookahead=True, bf16=bf16, ada_warp_method="fft")
     kw.update(over)
     return make_train_config(**kw)
 
@@ -433,16 +454,29 @@ def expected_launches(cfg, step: int) -> tuple[int, int]:
     reached through the conv double-backward's edge to its input), so 3 x Dn;
     the path penalty's first backward stops at W+ (n_layers), its second
     passes the StyledConvs twice more and the mapping network once:
-    3 x n_layers + 2 x n_mlp."""
+    3 x n_layers + 2 x n_mlp. ADA's warp and colour matrix launch neither
+    kernel; the D phase applies D once to the interleaved batch, or twice
+    (fakes and reals apart) with bCR or the contrastive regularizer. bCR
+    adds two D passes on the raw images and their backward; the
+    contrastive regularizer four passes through D's hidden layer, H = Dn - 2
+    activations (queries from the raw images, with a backward; keys from
+    the augmented ones, with a backward only without the momentum key
+    encoder). The projection head uses a plain ReLU."""
     n_mlp = 8
     log_size = int(math.log2(cfg.size))
     latent_in = 0 if cfg.constant_input else 2
     n_layers = 2 * (log_size - 2) + 1 + latent_in
     synth = 2 * n_mlp + n_layers
     disc = 1 + 2 * (log_size - 2) + 1 + 1
+    hidden = disc - 2
     a, k = cfg.num_accumulate, max(1, cfg.reg_chunks)
-    fwd = a * (synth + disc) * 2  # D phase (G without grad, D) and G phase (G, D)
-    grad = a * disc + a * (disc + synth)
+    d_passes = 1 if cfg.batch_size % 4 == 0 and cfg.bcr_weight == 0 and cfg.contrastive_weight == 0 else 2
+    d_passes += 2 if cfg.bcr_weight > 0 else 0
+    fwd = a * (synth + d_passes * disc) + a * (synth + disc)  # D phase (G without grad, D) and G phase (G, D)
+    grad = a * d_passes * disc + a * (disc + synth)
+    if cfg.contrastive_weight > 0:
+        fwd += a * 4 * hidden
+        grad += a * (2 if cfg.contrastive_momentum > 0 else 4) * hidden
     if cfg.r1 > 0 and step % cfg.d_reg_every == 0:
         fwd, grad = fwd + a * k * disc, grad + a * k * 3 * disc
     if cfg.path_regularize > 0 and step % cfg.g_reg_every == 0:
@@ -573,6 +607,17 @@ def phase_kernels_train(shapes: dict) -> dict:
     return per_step
 
 
+def to(obj, device):
+    """A draw (tensors, lists, named tuples, dataclasses of them) on `device`."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(to(o, device) for o in obj))
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to(o, device) for o in obj)
+    return type(obj)(**{k: to(v, device) for k, v in vars(obj).items()})
+
+
 def phase_train_card_vs_cpu():
     """Each phase of a step with R1 and the path penalty due, on the card
     (exact fp32) and on the CPU, from the same weights (init_train_state draws
@@ -586,13 +631,6 @@ def phase_train_card_vs_cpu():
     cfg = make_train_config(size=32, channel_max=64, batch_size=4, augment=False, constant_input=True)
     draws = draw_step(cfg, 0, torch.Generator().manual_seed(3), "cpu")
     real = torch.from_numpy(np.random.default_rng(4).uniform(-1, 1, (1, 4, 3, 32, 32)).astype(np.float32))
-
-    def to(obj, device):
-        if isinstance(obj, torch.Tensor):
-            return obj.to(device)
-        if isinstance(obj, list):
-            return [to(o, device) for o in obj]
-        return type(obj)(**{k: to(v, device) for k, v in vars(obj).items()})
 
     out = {}
     for name in ("d", "r1", "g", "path"):
@@ -765,9 +803,10 @@ def r1_with_autograd_upfirdn2d(state, real) -> None:
     want = r1_grads()
     function_ms = cuda_ms(r1_grads, runs=3, warmup=0)
     blocks.upfirdn2d = by_autograd
-    try:
-        got = r1_grads()
-        autograd_ms = cuda_ms(r1_grads, runs=2, warmup=0)
+    try:  # one timed run (about 10 s): it also gives the gradients held against the Function's
+        out = []
+        autograd_ms = cuda_ms(lambda: out.append(r1_grads()), runs=1, warmup=0)
+        got = out[0]
     finally:
         blocks.upfirdn2d = fir.upfirdn2d
     rel = max(((a - b).abs().max() / (b.abs().max() + 1e-30)).item() for a, b in zip(got, want))
@@ -809,14 +848,379 @@ def profile_train_step(step_fn, state, u8, cfg, gen_draws, label: str, step: int
     rows = kernel_rows(prof)
     total_ms = sum(r[0] for r in rows) / 1e3
     ours = {k: sum(us for us, key, _ in rows if k in key) / 1e3 for k in ("fused_bias_act_kernel", "fused_bias_act_grad_kernel")}
+    # cuFFT's own kernels are the ADA fft warp's shears; cuDNN's FFT convolution
+    # (fft2d_* kernels and a complex GEMM) is a conv algorithm it picks in fp32
+    cufft_ms = sum(us for us, key, _ in rows if "regular_fft" in key or "vector_fft" in key) / 1e3
+    fft_conv_ms = sum(us for us, key, _ in rows if "fft2d_" in key or "_cf32cf32_" in key) / 1e3
     out = dict(kernel_ms_total=total_ms, unprofiled_step_ms=wall_ms, device_busy_share=total_ms / wall_ms,
-               kernels=len(rows), fused_kernels_ms=ours,
+               kernels=len(rows), fused_kernels_ms=ours, cufft_kernels_ms=cufft_ms, cudnn_fft_conv_ms=fft_conv_ms,
                top=[dict(kernel=k, device_ms=us / 1e3, share=us / 1e3 / total_ms, calls=c) for us, k, c in rows[:10]])
     emit(phase="train_profile", config=label, size=TRAIN_SIZE, batch=TRAIN_BATCH, step_kind=step_kind(cfg, step), **out)
     return out
 
 
-# ---------------------------------------------------------------- phases 7, 8: generate()
+# ---------------------------------------------------------------- phases 7-10: ADA, bCR, contrastive
+AUG_BATCH = 2 * TRAIN_BATCH  # the fused D pass of the main path augments fakes and reals together
+WARPS = {
+    "conv": dict(method="conv"),
+    "matmul": dict(method="matmul"),
+    "matmul_1x_grid": dict(method="matmul", oversample_grid=False),
+    "fft": dict(method="fft"),
+}
+
+
+def aug_inputs(batch: int, size: int, device: str, seed: int = 12):
+    """Images and a cotangent in [-1, 1] from a numpy seed, and one
+    AugmentParams draw at p = 0.5 (made on the CPU), all on `device`."""
+    from maua_tpu_torch.train.augment import augment_params, draw_augment
+
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.uniform(-1, 1, (batch, 3, size, size)).astype(np.float32))
+    cot = torch.from_numpy(rng.uniform(-1, 1, (batch, 3, size, size)).astype(np.float32))
+    params = augment_params(draw_augment(batch, torch.Generator().manual_seed(seed + 1), "cpu"), torch.tensor(0.5), size, size)
+    return x.to(device), cot.to(device), type(params)(*(t.to(device) for t in params))
+
+
+def phase_augment_card_vs_cpu() -> dict:
+    """ADA's warps and colour matrix on the card against the CPU at the main
+    path's fused D batch ([24, 3, 256, 256] fp32, one draw at p = 0.5, TF32
+    off): each output and its input gradient (of <out, cotangent>) within
+    1e-4; then the fft warp's two shear implementations on the card, dftmm
+    against fft, in fp32 (1e-4) and bf16 (5e-2: bf16 DFT matrices)."""
+    from maua_tpu_torch.train.augment import apply_affine, apply_color
+    from maua_tpu_torch.train.fft_warp import affine_warp_fft
+
+    cases = {name: (lambda x, p, kw=kw: apply_affine(x, p.affine, **kw)) for name, kw in WARPS.items()}
+    cases["color"] = lambda x, p: apply_color(x, p.color)
+    res, out = {}, {}
+    with tf32_off():
+        for dev in ("cpu", "cuda"):
+            x, cot, params = aug_inputs(AUG_BATCH, TRAIN_SIZE, dev)
+            for name, fn in cases.items():
+                xr = x.clone().requires_grad_()
+                y = fn(xr, params)
+                require(y.device.type == dev, f"augment {name} ran on {y.device}, not {dev}")
+                (gx,) = torch.autograd.grad((y * cot).sum(), xr)
+                res.setdefault(name, {})[dev] = (y.detach().cpu(), gx.cpu())
+                del xr, y, gx
+        for name, r in res.items():
+            (y_card, g_card), (y_cpu, g_cpu) = r["cuda"], r["cpu"]
+            out[name] = dict(max_abs_err=(y_card - y_cpu).abs().max().item(), grad_max_abs_err=(g_card - g_cpu).abs().max().item(),
+                             out_abs_max=y_cpu.abs().max().item(), grad_abs_max=g_cpu.abs().max().item())
+            require(out[name]["max_abs_err"] <= 1e-4 and out[name]["grad_max_abs_err"] <= 1e-4,
+                    f"augment {name}: card vs CPU {out[name]}")
+        x, _, params = aug_inputs(AUG_BATCH, TRAIN_SIZE, "cuda")
+        shear = {}
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
+            a = affine_warp_fft(x.to(dtype), params.affine, shear_impl="fft").float()
+            b = affine_warp_fft(x.to(dtype), params.affine, shear_impl="dftmm").float()
+            shear[str(dtype).split(".")[1]] = err = (a - b).abs().max().item()
+            require(err <= tol, f"fft warp, dftmm against fft in {dtype}: {err}")
+    emit(phase="augment_card_vs_cpu", batch=AUG_BATCH, size=TRAIN_SIZE, p=0.5, precision="fp32, TF32 off",
+         tolerance="card vs CPU 1e-4 (values and input gradients); dftmm vs fft 1e-4 fp32, 5e-2 bf16",
+         card_vs_cpu=out, dftmm_vs_fft_max_abs_err=shear)
+    return out
+
+
+def phase_augment_times() -> dict:
+    """CUDA-event medians of each warp, forward and forward + backward (the
+    input gradient of <out, cotangent>), at the main path's fused D batch
+    [24, 3, 256, 256] in fp32 and bf16; the fft warp's two shears; and the
+    whole augment (fft warp + colour) at 1024^2, batch 8, the method `auto`
+    picks on the card at every size."""
+    from maua_tpu_torch.train.augment import apply_affine, augment
+    from maua_tpu_torch.train.fft_warp import affine_warp_fft
+
+    def fwd_bwd(fn, x, cot):
+        xr = x.detach().requires_grad_()
+        torch.autograd.grad((fn(xr).float() * cot).sum(), xr)
+
+    times = {}
+    with tf32_off():
+        x32, cot, params = aug_inputs(AUG_BATCH, TRAIN_SIZE, "cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            fns = {name: (lambda a, kw=kw: apply_affine(a, params.affine, **kw)) for name, kw in WARPS.items()}
+            fns["fft_dftmm_shear"] = lambda a: affine_warp_fft(a, params.affine, shear_impl="dftmm")
+            for name, fn in fns.items():
+                times[f"{name}_{str(dtype).split('.')[1]}"] = dict(
+                    forward_ms=cuda_ms(lambda: fn(x), runs=10), forward_backward_ms=cuda_ms(lambda: fwd_bwd(fn, x, cot), runs=10))
+            # the G pass augments its [12] fakes and takes the gradient back through the warp
+            g_params = type(params)(*(t[:TRAIN_BATCH] for t in params))
+            times[f"fft_b12_{str(dtype).split('.')[1]}"] = dict(forward_backward_ms=cuda_ms(
+                lambda: fwd_bwd(lambda a: apply_affine(a, g_params.affine, method="fft"), x[:TRAIN_BATCH], cot[:TRAIN_BATCH]),
+                runs=10))
+        del x32, cot
+        torch.cuda.empty_cache()
+        x, cot, params = aug_inputs(8, 1024, "cuda")
+        full = lambda a: augment(a, None, params=params, warp_method="fft")[0]  # noqa: E731
+        times["augment_fft_1024_b8_float32"] = dict(forward_ms=cuda_ms(lambda: full(x), runs=5),
+                                                    forward_backward_ms=cuda_ms(lambda: fwd_bwd(full, x, cot), runs=5))
+        del x, cot
+        torch.cuda.empty_cache()
+    emit(phase="augment_times", batch=AUG_BATCH, size=TRAIN_SIZE, times_ms=times)
+    return times
+
+
+def grad_groups(names: list, card: list, cpu: list) -> dict:
+    """Gradients by tensor, with G's per-layer noise weights (one scalar each)
+    taken together as one vector: each of their gradients is one sum over
+    every pixel of its layer, B x C x H x W terms of either sign that nearly
+    cancel, so fp32 holds it to ~1e-2 of itself on one device against
+    another, with or without ADA (over 8 draw seeds of the G phase at 32^2
+    without ADA, 5 went past 1e-3 of themselves on an H100, while every other
+    tensor stayed within 1e-3)."""
+    groups = {n: (a, b) for n, a, b in zip(names, card, cpu) if not n.endswith("noise.weight")}
+    noise = [(a.reshape(-1), b.reshape(-1)) for n, a, b in zip(names, card, cpu) if n.endswith("noise.weight")]
+    if noise:
+        groups["noise weights"] = (torch.cat([a for a, _ in noise]), torch.cat([b for _, b in noise]))
+    return groups
+
+
+def phase_train_ada_card_vs_cpu() -> dict:
+    """One D, ADA and G update at 32^2 (channel_max 64, batch 4), card
+    against CPU, D and G each from the same initial weights, with the same
+    draws, with ADA's fft warp at p = 0.5: the adaptive config with p set to
+    0.5 and 300 predictions already counted, so that the ADA phase updates
+    p; then with bCR, and with the contrastive regularizer (momentum 0.99,
+    queue 4 x batch). Tolerance as train_card_vs_cpu: losses rtol 1e-4, each gradient
+    (D's and the head's, G's with its layer noise weights as one vector,
+    `grad_groups`) max abs <= 1e-3 x its max abs + 1e-6; r_t and the sign
+    sum equal. Beside them, how far the matrices each device assembles from
+    the draws differ (sin, cos and exp differ in the last bits)."""
+    from maua_tpu_torch.train import augment_params, draw_step, init_train_state, make_train_config, make_train_phases
+
+    base = dict(size=32, channel_max=64, batch_size=4, constant_input=True, augment=True, ada_warp_method="fft")
+    configs = {"ada": {}, "bcr": dict(bcr_weight=1.0),
+               "contrastive": dict(contrastive_weight=0.1, contrastive_momentum=0.99, contrastive_queue=16)}
+    real = torch.from_numpy(np.random.default_rng(4).uniform(-1, 1, (1, 4, 3, 32, 32)).astype(np.float32))
+    out = {}
+    for label, over in configs.items():
+        cfg = make_train_config(**base, **over)
+        draws = draw_step(cfg, 0, torch.Generator().manual_seed(3), "cpu")
+        assembly_err = max((pb.cpu() - pa).abs().max().item()
+                           for draw in draws.d + draws.g for a in draw.aug
+                           for pa, pb in zip(augment_params(a, torch.tensor(0.5), cfg.size, cfg.size),
+                                             augment_params(to(a, "cuda"), torch.tensor(0.5, device="cuda"), cfg.size, cfg.size)))
+        res = {}
+        for dev in ("cpu", "cuda"):
+            st = init_train_state(cfg, seed=1, device=dev)
+            names = {"d": [n for n, _ in st.d.named_parameters()] +
+                     ([] if st.cl_head is None else [f"cl_head.{n}" for n, _ in st.cl_head.named_parameters()]),
+                     "g": [n for n, _ in st.g.named_parameters()]}
+            st.ada_p, st.ada_n = torch.tensor(0.5, device=dev), torch.tensor(300.0, device=dev)
+            ph = make_train_phases(cfg)
+            d_aux, d_grads = ph["d"](st, to(real, dev), to(draws.d, dev))
+            r_t = ph["ada"](st, d_aux)
+            # the G phase from the initial weights too, as train_card_vs_cpu runs each
+            # phase: after one Adam step (b1 = 0), D's elements whose gradient is
+            # near 0 move by +-lr on either device by the sign of rounding noise
+            st = init_train_state(cfg, seed=1, device=dev)
+            st.ada_p = torch.tensor(0.5, device=dev)
+            g_loss, g_grads = ph["g"](st, to(draws.g, dev))
+            res[dev] = dict(d=(float(d_aux["d_loss"]), [g.detach().cpu() for g in d_grads]),
+                            g=(float(g_loss), [g.detach().cpu() for g in g_grads]),
+                            ada=[float(v) for v in (r_t, d_aux["sign_sum"])])
+        out[label] = {}
+        for name in ("d", "g"):
+            (l_cpu, g_cpu), (l_card, g_card) = res["cpu"][name], res["cuda"][name]
+            require(abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu) + 1e-7, f"{label} {name} loss: card {l_card} vs CPU {l_cpu}")
+            require(all(bool(torch.isfinite(a).all()) for a in g_card), f"{label} {name}: card gradients are finite")
+            groups = grad_groups(names[name], g_card, g_cpu)
+            for group, (a, b) in groups.items():
+                err, scale = (a - b).abs().max().item(), b.abs().max().item()
+                require(err <= 1e-3 * scale + 1e-6,
+                        f"{label} {name}: card vs CPU gradient {group} {tuple(b.shape)}: max abs err {err} against max abs {scale}")
+            rel = {n: ((a - b).abs().max() / (b.abs().max() + 1e-12)).item() for n, a, b in zip(names[name], g_card, g_cpu)}
+            out[label][name] = dict(loss_cpu=l_cpu, loss_card=l_card,
+                                    grad_max_abs_err=max((a - b).abs().max().item() for a, b in zip(g_card, g_cpu)),
+                                    grad_max_rel_err=max(((a - b).abs().max() / (b.abs().max() + 1e-12)).item()
+                                                         for a, b in groups.values()),
+                                    worst_single_tensor=max(rel.items(), key=lambda kv: kv[1]))
+        require(res["cuda"]["ada"] == res["cpu"]["ada"], f"{label} ADA r_t and sign sum: {res['cuda']['ada']} vs {res['cpu']['ada']}")
+        out[label]["ada"] = dict(r_t=res["cuda"]["ada"][0], sign_sum=res["cuda"]["ada"][1])
+        out[label]["matrix_assembly_max_abs_err"] = assembly_err
+    # why G's noise weights are judged together: the G phase without ADA over
+    # 8 draw seeds, each tensor's card-vs-CPU max abs error over its max abs
+    sweep = {}
+    cfg = make_train_config(**{**base, "augment": False})
+    for seed in range(3, 11):
+        draws = draw_step(cfg, 0, torch.Generator().manual_seed(seed), "cpu")
+        grads = {}
+        for dev in ("cpu", "cuda"):
+            st = init_train_state(cfg, seed=1, device=dev)
+            grads[dev] = make_train_phases(cfg)["g"](st, to(draws.g, dev))[1]
+        rel = {n: ((a.cpu() - b).abs().max() / (b.abs().max() + 1e-12)).item()
+               for (n, _), a, b in zip(st.g.named_parameters(), grads["cuda"], grads["cpu"])}
+        sweep[seed] = dict(worst_noise_weight=max(v for n, v in rel.items() if n.endswith("noise.weight")),
+                           worst_other=max(v for n, v in rel.items() if not n.endswith("noise.weight")))
+    out["g_without_ada_by_seed"] = sweep
+    emit(phase="train_ada_card_vs_cpu", size=32, channel_max=64, batch=4, p=0.5, warp="fft", precision="exact fp32",
+         tolerance="loss rtol 1e-4; grad max abs <= 1e-3 x max abs + 1e-6 (G's noise weights as one vector); r_t and sign sum equal",
+         configs=out)
+    return out
+
+
+def write_png_folder(folder: str, n: int, seed: int) -> None:
+    """n PNGs of 288 x 320 (smooth colour fields plus noise, from a numpy
+    seed), written with OpenCV: prepare_data centre-crops and resizes them."""
+    import cv2
+
+    os.makedirs(folder, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:288, 0:320] / 64.0
+    for i in range(n):
+        f = rng.uniform(0.5, 3.0, (3, 2))
+        img = np.stack([np.sin(f[c, 0] * yy + i) * np.cos(f[c, 1] * xx - c) for c in range(3)], axis=-1)
+        img = 127.5 * (img + 1) + rng.normal(0, 8, img.shape)
+        cv2.imwrite(os.path.join(folder, f"img{i:03d}.png"), np.clip(img, 0, 255).astype(np.uint8))
+
+
+def ada_p_on_host(log: list, target: float = 0.6, length: float = 15_000.0, threshold: float = 256.0) -> list:
+    """p after each logged step, recomputed in float32 on the host from the
+    logged sign sums and counts by ada_adjust_p's rule."""
+    f = np.float32
+    p, signs, n, out = f(0), f(0), f(0), []
+    for x in log:
+        signs, n = f(signs + f(x["sign_sum"])), f(n + f(x["n_pred"]))
+        if n > threshold:
+            r_t = f(signs / max(n, f(1)))
+            p = f(np.clip(f(p + f(1.0 if r_t > target else -1.0) * f(target / length) * n), 0, 1))
+            signs, n = f(0), f(0)
+        out.append(p)
+    return out
+
+
+def phase_train_ada_main_path(tmp: str) -> dict:
+    """The train CLI's default configuration (ADA on, `--ada_warp auto` = the
+    fft warp on the card) at 256^2, full width, batch 12, on 48 raw shards
+    that the port's prepare_data makes from a folder of PNGs. (a) fp32 and
+    bf16 with --augment_p 0.5, 8 steps each: s/step by kind, imgs/s over the
+    16-step cycle, peak memory, launches per step against the structure;
+    (b) bf16, adaptive p from 0, 24 steps: p updates at the first step whose
+    count passes 256 predictions (step 21, 12 per step) to the value
+    ada_adjust_p gives from the logged sign sums; (c) bf16 with bCR 1,
+    contrastive 0.1, momentum 0.99 and a queue of 48, 4 steps. Then the
+    profile of one R1 + path step with ADA in fp32 and bf16 with the fft
+    warp's kernels' share, and the launch shapes of an fp32 ADA step."""
+    from maua_tpu_torch.data import prepare_data
+    from maua_tpu_torch.ops import fused_act
+    from maua_tpu_torch.train import draw_step, make_train_step
+    from maua_tpu_torch.train.cli import build_parser, train_loop
+
+    pngs, shards = os.path.join(tmp, "pngs"), os.path.join(tmp, "ada_shards")
+    t0 = time.perf_counter()
+    write_png_folder(pngs, 48, seed=21)
+    n = prepare_data(pngs, shards, sizes=(TRAIN_SIZE,), n_workers=2, shard_size=24, fmt="raw")
+    require(n == 48 and len(os.listdir(shards)) == 2, f"prepare_data wrote {n} images, {os.listdir(shards)}")
+    emit(phase="train_ada_data", size=TRAIN_SIZE, images=n, shards=sorted(os.listdir(shards)), seconds=time.perf_counter() - t0)
+
+    def argv(run, iters, *extra):
+        return ["--path", shards, "--size", str(TRAIN_SIZE), "--batch_size", str(TRAIN_BATCH), "--iter", str(iters),
+                "--log_every", "1", "--img_every", "0", "--checkpoint_every", "0", "--num_workers", "4",
+                "--device", "cuda", "--run_dir", run, *extra]
+
+    def counted_run(label, iters, *extra):
+        with contextlib.redirect_stdout(io.StringIO()):  # warm-up: one step with R1 and the path penalty
+            train_loop(build_parser().parse_args(argv(os.path.join(tmp, f"warm_{label}"), 1, *extra)))
+        torch.cuda.synchronize()
+        run = os.path.join(tmp, f"run_{label}")
+        torch.cuda.reset_peak_memory_stats()
+        fused_act.launches = fused_act.grad_launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            state = train_loop(build_parser().parse_args(argv(run, iters, *extra)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = (fused_act.launches, fused_act.grad_launches)
+        lines = [json.loads(x) for x in open(os.path.join(run, "metrics.jsonl"))]
+        require([x["step"] for x in lines] == list(range(iters)), f"{label}: logged steps {[x['step'] for x in lines]}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            train_loop(build_parser().parse_args(argv(run, 1, *extra, "--print_config")))
+        cfg = make_cfg(json.loads(buf.getvalue()))
+        require(cfg.augment and cfg.ada_warp_method == "fft", f"{label}: resolved ADA {cfg.augment} {cfg.ada_warp_method}")
+        kinds: dict[str, list[float]] = {}
+        for x in lines:
+            for k in ("Generator", "Discriminator", "R1 Penalty", "Path Length Regularization", "Augment", "Rt"):
+                require(np.isfinite(x[k]), f"{label} step {x['step']}: {k} = {x[k]}")
+            want = expected_launches(cfg, x["step"])
+            got = (x["fused_bias_act launches"], x["fused_bias_act_grad launches"])
+            require(got == want, f"{label} step {x['step']}: launches {got}, derived from the model {want}")
+            kinds.setdefault(step_kind(cfg, x["step"]), []).append(x["sec_per_iter"])
+        total = tuple(sum(expected_launches(cfg, i)[j] for i in range(iters)) for j in (0, 1))
+        require(launches == total, f"{label}: {launches} launches in the run, derived {total}")
+        s_step = {k: statistics.median(v) for k, v in kinds.items()}
+        return dict(state=state, cfg=cfg, lines=lines, launches=launches, wall_s=wall, s_step=s_step,
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    def make_cfg(resolved):
+        from maua_tpu_torch.train import TrainConfig
+
+        return TrainConfig(**resolved)
+
+    results, profile, shapes = {}, {}, None
+    gen_draws = torch.Generator(device="cuda").manual_seed(11)
+    u8 = torch.from_numpy(np.random.default_rng(9).integers(
+        0, 256, (1, TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3), dtype=np.uint8)).cuda()
+    # (a) fixed p = 0.5
+    for label, extra in (("fp32_exact", ()), ("bf16", ("--bf16",))):
+        r = counted_run(f"ada_{label}", TRAIN_STEPS, "--augment_p", "0.5", *extra)
+        cycle = (r["s_step"]["r1_path"] + 3 * r["s_step"]["path"] + 12 * r["s_step"]["plain"]) / 16
+        per_kind = {k: dict(zip(("forward", "gradient"), expected_launches(r["cfg"], i)))
+                    for k, i in (("r1_path", 0), ("path", 4), ("plain", 1))}
+        results[f"a_{label}"] = dict(launches=r["launches"], s_step=r["s_step"], cycle_s=cycle, peak_gb=r["peak_gb"])
+        emit(phase="train_ada_main_path", run="a", config=label, size=TRAIN_SIZE, batch=TRAIN_BATCH, augment_p=0.5, warp="fft",
+             steps=TRAIN_STEPS, launches=dict(zip(("forward", "gradient"), r["launches"])), launches_per_step_kind=per_kind,
+             s_per_step=r["s_step"], imgs_per_s={k: TRAIN_BATCH / v for k, v in r["s_step"].items()},
+             imgs_per_s_16_step_cycle=TRAIN_BATCH / cycle, run_wall_s=r["wall_s"], peak_memory_gb=r["peak_gb"],
+             losses_last={k: r["lines"][-1][k] for k in ("Generator", "Discriminator")})
+        state, cfg = r["state"], r["cfg"]
+        step_fn = make_train_step(cfg)
+        if label == "fp32_exact":
+            state.step = 16 * 10
+            shapes = record_launch_shapes(lambda: step_fn(state, u8, draw_step(cfg, state.step, gen_draws, "cuda")))
+        profile[label] = profile_train_step(step_fn, state, u8, cfg, gen_draws, f"ada_{label}", 16 * 11)
+        del r, state, step_fn
+        torch.cuda.empty_cache()
+
+    # (b) adaptive p from 0
+    r = counted_run("ada_adaptive", 24, "--bf16")
+    host_p = ada_p_on_host(r["lines"])
+    logged_p = [x["Augment"] for x in r["lines"]]
+    first = next(i for i, x in enumerate(np.cumsum([x["n_pred"] for x in r["lines"]])) if x > 256)
+    require(first == 21, f"(b) the count passes 256 at step {first}")
+    require(all(p == 0.0 for p in logged_p[:first]), f"(b) p moved before step {first}: {logged_p[:first]}")
+    require(all(abs(a - b) <= 1e-7 for a, b in zip(logged_p, host_p)), f"(b) p {logged_p} vs ada_adjust_p on the host {host_p}")
+    # the update reset the counts: the next step's r_t is its own sign sum over its own 12 predictions
+    nxt = r["lines"][first + 1]
+    require(nxt["Rt"] == np.float32(nxt["sign_sum"]) / np.float32(nxt["n_pred"]), f"(b) counts not reset after step {first}: {nxt}")
+    r_t_update = r["lines"][first]["Rt"]
+    # p moves up from 0 when r_t > the 0.6 target; below it the step down is clipped at 0
+    require((logged_p[first] > 0.0) == (r_t_update > 0.6), f"(b) p {logged_p[first]} at r_t {r_t_update}")
+    results["b"] = dict(p=logged_p, p_host=[float(p) for p in host_p], update_step=first, s_step=r["s_step"])
+    emit(phase="train_ada_main_path", run="b", config="bf16", augment_p="adaptive", steps=24, update_step=first,
+         r_t_at_update=r_t_update, p_moved=logged_p[first] > 0.0, p_per_step=logged_p, p_host=[float(p) for p in host_p], rt_per_step=[x["Rt"] for x in r["lines"]],
+         sign_sum_per_step=[x["sign_sum"] for x in r["lines"]], s_per_step=r["s_step"], peak_memory_gb=r["peak_gb"])
+    del r
+    torch.cuda.empty_cache()
+
+    # (c) bCR + contrastive with MoCo
+    flags = ("--bf16", "--augment_p", "0.5", "--balanced_consistency", "1", "--contrastive", "0.1",
+             "--contrastive_momentum", "0.99", "--contrastive_queue", "48")
+    r = counted_run("bcr_contrastive", 4, *flags)
+    require(int(r["state"].cl_state.queue_filled) == 48, f"(c) queue filled {int(r['state'].cl_state.queue_filled)}")
+    results["c"] = dict(s_step=r["s_step"], launches=r["launches"], peak_gb=r["peak_gb"])
+    emit(phase="train_ada_main_path", run="c", config="bf16", bcr=1.0, contrastive=0.1, contrastive_momentum=0.99,
+         contrastive_queue=48, steps=4, launches=dict(zip(("forward", "gradient"), r["launches"])),
+         launches_per_step=[expected_launches(r["cfg"], i) for i in range(4)], s_per_step=r["s_step"],
+         peak_memory_gb=r["peak_gb"], losses={k: [x[k] for x in r["lines"]] for k in ("Generator", "Discriminator")})
+    del r
+    torch.cuda.empty_cache()
+    return {"results": results, "profile": profile, "shapes": shapes}
+
+
+# ---------------------------------------------------------------- phases 11, 12: generate()
 SR = 22050
 GEN_SIZE, TRACK_S = 1024, 180.0  # the FFHQ-1024 checkpoint of phase 4; the whole track of (a)
 
@@ -1183,19 +1587,34 @@ def main() -> int:
         results = phase_main_path(tmp)
         phase_train_card_vs_cpu()
         train = phase_train_main_path(tmp)
+        phase_augment_card_vs_cpu()
+        aug_times = phase_augment_times()
+        phase_train_ada_card_vs_cpu()
+        ada = phase_train_ada_main_path(tmp)
         with contextlib.chdir(tmp):  # load_audio's and generate()'s workspace/
             phase_generate_card_vs_cpu(tmp)
             gen = phase_generate_main_path(tmp)
+    # the ADA step's launch shapes are the plain step's (the fused D pass,
+    # the same G and D): the kernels are timed once, at those shapes
+    require(ada["shapes"] == train["shapes"]["fp32_exact"], "an fp32 ADA step launches the kernels at other shapes")
     per_step = phase_kernels_train(train["shapes"])
     phase_kernels_generate(gen["shapes"])
+    for label, dt in (("fp32_exact", "float32"), ("bf16", "bfloat16")):
+        prof = ada["profile"][label]
+        warp_ms = aug_times[f"fft_{dt}"]["forward_ms"] + aug_times[f"fft_b12_{dt}"]["forward_backward_ms"]
+        emit(phase="ada_warp_share", config=label, step_kind="r1_path", warp_ms_per_step=warp_ms,
+             unprofiled_step_ms=prof["unprofiled_step_ms"], warp_share=warp_ms / prof["unprofiled_step_ms"],
+             cufft_kernels_ms=prof["cufft_kernels_ms"],
+             note="warp_ms: fft warp forward on the fused [24] D batch + forward and backward on the [12] G batch")
 
     emit(phase="kernel_render_batch_fp32", kernel="fused_bias_act", render_launches=results["fp32_exact"]["launches"],
          **{k: per_batch["float32"][k] for k in ("ms", "plain_ms", "bound_ms")})
-    # the kernels line: this slice's main path, the fp32 exact training run;
+    # the kernels line: this slice's main path, the fp32 ADA training run (a);
     # times are sums over the launches of one fp32 step with R1 and the path
     # penalty (per-launch-shape lines above, `kernel_grad`, `kernel_train_step`)
     step_fp32 = per_step["fp32_exact"]
-    launches = dict(zip(("fused_bias_act", "fused_bias_act_grad"), train["results"]["fp32_exact"]["launches"]))
+    launches = dict(zip(("fused_bias_act", "fused_bias_act_grad"), ada["results"]["a_fp32_exact"]["launches"]))
+    require(min(launches.values()) > 0, f"the ADA training path launched a kernel no time: {launches}")
     rows = []
     for name, replaces in (("fused_bias_act", "maua_tpu/ops/pallas_act.py:38"),
                            ("fused_bias_act_grad", "maua_tpu/ops/pallas_act.py:43")):

@@ -10,8 +10,11 @@ added. `discriminator_state_dict_from_jax(params)` is the inverse of the JAX
 package's `discriminator_variables_from_torch`: `from_rgb` -> `convs.0`,
 `block_<log2 res>` -> `convs.1` ... from the top resolution down, a
 `ConvLayer`'s conv and `act_bias` -> its Sequential indices (shifted by one
-behind the downsampling blur, whose FIR kernel buffer is added). Only numpy is
-needed on the JAX side: any array type that `np.asarray` takes will do.
+behind the downsampling blur, whose FIR kernel buffer is added).
+`projection_head_state_dict_from_jax(head)` maps the contrastive projection
+head's dict (`w1`, `b1`, `w2`, `b2`, optional `bw`) onto the port's
+`ProjectionHead`, whose parameters keep those names and layouts. Only numpy
+is needed on the JAX side: any array type that `np.asarray` takes will do.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 from ..models.blocks import DEFAULT_BLUR_KERNEL
 from ..ops.upfirdn2d import setup_filter
 
-__all__ = ["discriminator_state_dict_from_jax", "generator_state_dict_from_jax"]
+__all__ = ["discriminator_state_dict_from_jax", "generator_state_dict_from_jax", "projection_head_state_dict_from_jax"]
 
 
 def _t(a) -> torch.Tensor:
@@ -112,3 +115,8 @@ def discriminator_state_dict_from_jax(
         sd[f"final_linear.{i}.weight"] = _t(tree["weight"]).t().contiguous()
         sd[f"final_linear.{i}.bias"] = _t(tree["bias"])
     return sd
+
+
+def projection_head_state_dict_from_jax(head: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX projection-head dict -> state dict for `ProjectionHead.load_state_dict`."""
+    return {k: _t(head[k]) for k in ("w1", "b1", "w2", "b2", "bw") if k in head}

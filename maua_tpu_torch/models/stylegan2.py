@@ -326,10 +326,16 @@ class Discriminator(nn.Module):
         """x [B, 3, size, size] -> logits [B, 1] (fp32); with `return_hidden`
         also the last ResBlock's activation (in the compute dtype)."""
         with tf32(conv=False, matmul=False):
-            hidden = self.convs(x.to(self.dtype))
+            hidden = self.hidden(x)
             batch = hidden.shape[0]
             # the statistic in fp32: the variance of near-equal values cancels in bf16
             out = minibatch_stddev(hidden.float(), self.stddev_group, self.stddev_feat).to(self.dtype)
             out = self.final_conv(out).reshape(batch, -1).float()
             out = self.final_linear(out)
         return (out, hidden) if return_hidden else out
+
+    def hidden(self, x: torch.Tensor) -> torch.Tensor:
+        """The last ResBlock's activation alone (the contrastive regularizer's
+        features), without the layers after it."""
+        with tf32(conv=False, matmul=False):
+            return self.convs(x.to(self.dtype))

@@ -22,6 +22,7 @@ from typing import Callable, NamedTuple, Optional, Sequence
 import torch
 
 from ..audio.dsp import pad_axis
+from ..ops.gather import bilinear_gather
 
 
 class Bend(NamedTuple):
@@ -39,30 +40,6 @@ def _reflect_pad(x: torch.Tensor, left: int, right: int, top: int = 0, bottom: i
     return _pad2d(x, left, right, top, bottom, "reflect")
 
 
-def _bilinear_gather(img: torch.Tensor, px: torch.Tensor, py: torch.Tensor) -> torch.Tensor:
-    """img [B,C,H,W], px/py [B,Ho,Wo] pixel coords; zeros outside."""
-    b, c, h, w = img.shape
-    x0 = torch.floor(px)
-    y0 = torch.floor(py)
-    wx = (px - x0)[:, None]
-    wy = (py - y0)[:, None]
-    flat = img.reshape(b, c, h * w)
-
-    def gather(yi, xi):
-        valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
-        xi_c = torch.clamp(xi, 0, w - 1).long()
-        yi_c = torch.clamp(yi, 0, h - 1).long()
-        idx = (yi_c * w + xi_c).reshape(b, 1, -1).expand(b, c, -1)
-        out = torch.gather(flat, 2, idx).reshape(b, c, *xi.shape[1:])
-        return out * valid[:, None].to(img.dtype)
-
-    v00 = gather(y0, x0)
-    v01 = gather(y0, x0 + 1)
-    v10 = gather(y0 + 1, x0)
-    v11 = gather(y0 + 1, x0 + 1)
-    return v00 * (1 - wx) * (1 - wy) + v01 * wx * (1 - wy) + v10 * (1 - wx) * wy + v11 * wx * wy
-
-
 def _affine_crop(x_pad: torch.Tensor, h: int, w: int, mats: torch.Tensor) -> torch.Tensor:
     """Sample the center h x w crop of x_pad through per-sample inverse-affine
     `mats` [B,2,3] given in output-pixel coordinates (origin at crop center)."""
@@ -76,7 +53,7 @@ def _affine_crop(x_pad: torch.Tensor, h: int, w: int, mats: torch.Tensor) -> tor
     src = torch.einsum("bij,jk->bik", mats, grid)  # [B,2,h*w]
     px = src[:, 0].reshape(b, h, w) + cx
     py = src[:, 1].reshape(b, h, w) + cy
-    return _bilinear_gather(x_pad, px, py)
+    return bilinear_gather(x_pad, px, py)
 
 
 def _mod(mod: Optional[torch.Tensor], b: int, fill: float, device) -> torch.Tensor:

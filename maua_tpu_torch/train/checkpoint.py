@@ -3,7 +3,8 @@
 The port's checkpoint is one `torch.save` file, `<dir>/step_<step:07d>.pt`,
 laid out as a rosinality training checkpoint ({g, d, g_ema, g_optim,
 d_optim}, state dicts with rosinality keys) plus the rest of the state
-(step, lookahead cache, running path-length mean, config). Its `g_ema`
+(step, lookahead cache, running path-length mean, ADA's p and sign counts,
+the contrastive projection head and its MoCo state). Its `g_ema`
 therefore loads with `maua_tpu_torch.io.load_generator`, which feeds the
 render path. `load_torch_training_checkpoint` resumes from a reference
 `{g, d, g_ema}` `.pt`.
@@ -45,6 +46,10 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, step: Optional[int] = None
         "lookahead": None if la is None else {"slow_g": la.slow_g, "slow_d": la.slow_d, "step": la.step},
         "mean_path_length": state.mean_path_length,
         "ada_p": state.ada_p,
+        "ada_signs": state.ada_signs,
+        "ada_n": state.ada_n,
+        "cl_head": None if state.cl_head is None else state.cl_head.state_dict(),
+        "cl_state": None if state.cl_state is None else _cl_state_payload(state.cl_state),
     }
     tmp = path + ".tmp"
     torch.save(payload, tmp)
@@ -81,9 +86,28 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
         la = ckpt["lookahead"]
         state.lookahead.slow_g, state.lookahead.slow_d, state.lookahead.step = la["slow_g"], la["slow_d"], la["step"]
     state.mean_path_length = ckpt["mean_path_length"].to(state.device)
-    state.ada_p = ckpt["ada_p"]
+    # a checkpoint written before ADA was ported holds p as a float and no counts
+    state.ada_p = torch.as_tensor(ckpt["ada_p"], dtype=torch.float32).to(state.device)
+    for name in ("ada_signs", "ada_n"):
+        setattr(state, name, torch.as_tensor(ckpt.get(name, 0.0), dtype=torch.float32).to(state.device))
+    if (ckpt.get("cl_head") is None) != (state.cl_head is None):
+        raise ValueError(f"{path}: the checkpoint's contrastive head does not match the config's")
+    if state.cl_head is not None:
+        state.cl_head.load_state_dict(ckpt["cl_head"])
+    if state.cl_state is not None:
+        cl = ckpt.get("cl_state") or {}
+        if state.cl_state.key_d is not None:
+            state.cl_state.key_d.load_state_dict(cl["key_d"])
+        if state.cl_state.queue is not None:
+            state.cl_state = state.cl_state._replace(queue=cl["queue"], queue_ptr=cl["queue_ptr"],
+                                                     queue_filled=cl["queue_filled"])
     state.step = int(ckpt["step"])
     return state
+
+
+def _cl_state_payload(cl) -> dict[str, Any]:
+    return {"key_d": None if cl.key_d is None else cl.key_d.state_dict(), "queue": cl.queue,
+            "queue_ptr": cl.queue_ptr, "queue_filled": cl.queue_filled}
 
 
 def _with_kernels(module: torch.nn.Module, sd: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:

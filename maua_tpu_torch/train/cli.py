@@ -1,18 +1,21 @@
 """Training entry point: the host loop around the train step (counterpart of
 maua_tpu/train/cli.py; the same flags, plus `--device`).
 
-    python -m maua_tpu_torch.train.cli --path shards/ --size 256 --batch_size 12 --no-augment
+    python -m maua_tpu_torch.train.cli --path shards/ --size 256 --batch_size 12
 
-`--augment` keeps the JAX package's default (on), and ADA is not ported yet,
-so the plain command raises until it is: pass `--no-augment`. Flags for work
-that waits for a later part of the port raise NotImplementedError when set:
-bCR and contrastive (with ADA), eval / FID / SWD, wandb, spectral norms, the
+ADA is on by default (`--augment`), with the JAX CLI's resolution rules:
+`--ada_warp auto` is the FFT-shear warp on a CUDA device and the conv warp on
+the CPU, `--ada_fast_warp -1` turns the 1x-grid warp on from 512^2,
+`--ada_fft_taper 0` turns the fft warp's taper off. `--balanced_consistency`
+and `--contrastive` (with `--contrastive_momentum` and `--contrastive_queue`)
+run too. Flags for work that waits for a later part of the port raise
+NotImplementedError when set: eval / FID / SWD, wandb, spectral norms, the
 device monitor and the trace capture (telemetry), and multi-host runs. The
-TPU layouts (`--s2d_min_res`) and the settings of ADA and the contrastive
-regularizer are accepted and ignored.
+TPU layout `--s2d_min_res` is accepted and ignored.
 
 Each logged step appends one JSON line to `<run_dir>/metrics.jsonl` with the
-JAX package's metric names, `step`, `sec_per_iter` (wall time per step since
+JAX package's metric names, the D phase's `sign_sum` and `n_pred` (ADA's
+real-prediction counts), `step`, `sec_per_iter` (wall time per step since
 the last log, the step's work synchronised by reading the metrics) and the
 launches of the two fused bias + leaky-ReLU kernels in the logged steps'
 train steps (`fused_bias_act launches`, `fused_bias_act_grad launches`;
@@ -60,14 +63,7 @@ def save_image_grid(images: np.ndarray, path: str, n_cols: int = 4) -> None:
 
 
 def _refuse_unported(args) -> None:
-    if args.augment:
-        raise NotImplementedError(
-            "ADA augmentation (--augment, on by default as in maua_tpu) is not ported to "
-            "maua_tpu_torch yet (ROADMAP item 11, Queue 2c): pass --no-augment"
-        )
     unported = {
-        "--balanced_consistency": (args.balanced_consistency > 0, "ROADMAP item 11, with ADA"),
-        "--contrastive": (args.contrastive > 0, "ROADMAP item 11, with ADA"),
         "--eval_every": (args.eval_every > 0, "evaluation, ROADMAP item 12"),
         "--wandb": (args.wandb, "logging goes to metrics.jsonl"),
         "--log_spec_norm": (args.log_spec_norm, "telemetry, ROADMAP item 14"),
@@ -87,6 +83,7 @@ def train_loop(args) -> Optional[TrainState]:
     """Train from parsed arguments; returns the final state (None with
     --print_config)."""
     _refuse_unported(args)
+    device = resolve_device(args.device)
     cfg = make_train_config(
         size=args.size,
         batch_size=args.batch_size,
@@ -102,13 +99,26 @@ def train_loop(args) -> Optional[TrainState]:
         constant_input=not args.noconst,
         augment=args.augment,
         augment_p=args.augment_p,
+        ada_target=args.ada_target,
+        ada_length=args.ada_length,
         lookahead=args.lookahead,
         la_steps=args.la_steps,
         la_alpha=args.la_alpha,
         bcr_weight=args.balanced_consistency,
         contrastive_weight=args.contrastive,
+        contrastive_momentum=args.contrastive_momentum,
+        contrastive_queue=args.contrastive_queue,
         bf16=args.bf16,
         s2d_min_res=args.s2d_min_res,
+        # the JAX CLI's rules: the 1x-grid warp from 512^2 on; `auto` is the
+        # FFT-shear warp on the card (decided by the training device) and
+        # the gather warp ("conv") on the CPU
+        ada_fast_warp=args.size >= 512 if args.ada_fast_warp < 0 else bool(args.ada_fast_warp),
+        ada_warp_method=(
+            (None if device.type == "cpu" else "fft") if args.ada_warp == "auto" else (args.ada_warp or None)
+        ),
+        ada_fft_taper=args.ada_fft_taper if args.ada_fft_taper > 0 else None,
+        ada_fft_taper_conditional=not args.ada_fft_taper_always,
         # the same automatic rules as the JAX CLI: chunk the lazy regularizers
         # into stddev-group-sized pieces and rematerialise the G synthesis from
         # 512^2 on, where their peak memory bounds the batch
@@ -118,7 +128,6 @@ def train_loop(args) -> Optional[TrainState]:
     if args.print_config:
         print(json.dumps(cfg._asdict()))
         return None
-    device = resolve_device(args.device)
     state = init_train_state(cfg, args.seed, device)
     step_fn = make_train_step(cfg)
 
@@ -200,11 +209,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--channel_max", type=int, default=512,
                    help="fmap cap (StyleGAN fmap_max); narrow models for tests/smoke runs")
     p.add_argument("--noconst", action="store_true")
-    p.add_argument("--augment", action="store_true", default=True, help="ADA: not ported yet, pass --no-augment")
+    p.add_argument("--augment", action="store_true", default=True, help="ADA augmentation (default on)")
     p.add_argument("--no-augment", dest="augment", action="store_false")
     p.add_argument("--augment_p", type=float, default=0.0)
-    p.add_argument("--ada_target", type=float, default=0.6, help="ADA option: accepted and ignored")
-    p.add_argument("--ada_length", type=float, default=15_000, help="ADA option: accepted and ignored")
+    p.add_argument("--ada_target", type=float, default=0.6, help="ADA's target r_t")
+    p.add_argument("--ada_length", type=float, default=15_000, help="real predictions for p to move by the target")
     p.add_argument("--lookahead", action="store_true", default=True)
     p.add_argument("--no-lookahead", dest="lookahead", action="store_false")
     p.add_argument("--la_steps", type=int, default=500)
@@ -220,13 +229,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--remat_synth", type=int, default=-1,
                    help="activation checkpointing of G synthesis in the G phase (exact); -1 = auto (on at >=512^2)")
     p.add_argument("--ada_warp", type=str, default="auto", choices=["auto", "", "fft", "matmul", "conv"],
-                   help="ADA option: accepted and ignored until ADA is ported")
-    p.add_argument("--ada_fft_taper", type=float, default=0.85, help="ADA option: accepted and ignored")
-    p.add_argument("--ada_fft_taper_always", action="store_true", help="ADA option: accepted and ignored")
-    p.add_argument("--ada_fast_warp", type=int, default=-1, help="ADA option: accepted and ignored")
+                   help="ADA warp: auto = fft on a CUDA device, the gather warp on the CPU; '' = by --ada_fast_warp")
+    p.add_argument("--ada_fft_taper", type=float, default=0.85,
+                   help="fft warp: band taper from this fraction of Nyquist (0 = off)")
+    p.add_argument("--ada_fft_taper_always", action="store_true",
+                   help="fft warp: taper every row, not only fractionally shifted ones")
+    p.add_argument("--ada_fast_warp", type=int, default=-1,
+                   help="1x-output-grid matmul warp (1/0); -1 = auto (on at >=512^2)")
     p.add_argument("--contrastive", type=float, default=0.0)
-    p.add_argument("--contrastive_momentum", type=float, default=0.0, help="contrastive option: accepted and ignored")
-    p.add_argument("--contrastive_queue", type=int, default=0, help="contrastive option: accepted and ignored")
+    p.add_argument("--contrastive_momentum", type=float, default=0.0,
+                   help="MoCo key encoder momentum (0 = keys through D itself)")
+    p.add_argument("--contrastive_queue", type=int, default=0,
+                   help="MoCo queue of past keys as negatives (a multiple of 2 x batch; 0 = none)")
     p.add_argument("--checkpoint", type=str, default=None,
                    help="a checkpoint of this trainer, or a rosinality {g, d, g_ema} .pt")
     p.add_argument("--transfer_mapping_only", action="store_true")

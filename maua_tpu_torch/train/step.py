@@ -1,4 +1,5 @@
-"""The StyleGAN2 train step: D phase, lazy R1, G phase, lazy path-length
+"""The StyleGAN2 train step: D phase (with ADA, bCR and the contrastive
+regularizer), lazy R1, the adaptive-p update, G phase, lazy path-length
 regularization, lookahead-minimax and EMA (counterpart of
 maua_tpu/train/step.py).
 
@@ -7,30 +8,35 @@ state holds the modules and optimizers and the phases update it in place:
 
 * `init_train_state(cfg, seed, device)` builds G, D, the EMA copy of G, one
   Adam for each network with the lazy-regularization ratio (lr * r, betas
-  0**r and 0.99**r, r = n / (n + 1)), the lookahead cache and the running
-  path-length mean. R1 steps D's optimizer and the path penalty G's, as in
-  the JAX package.
+  0**r and 0.99**r, r = n / (n + 1)), the lookahead cache, the running
+  path-length mean, ADA's p and sign counts (0-d device tensors, so neither
+  the augmentation nor the update reads them on the host) and, with the
+  contrastive regularizer, its projection head (trained by D's Adam, which
+  R1 steps with zero gradients for it, as optax steps (d_params, cl_head))
+  and its MoCo state. R1 steps D's optimizer and the path penalty G's, as
+  in the JAX package.
 * Every random draw of a step is made up front by `draw_step` from one
   `torch.Generator`: z1, z2, the mixing mask and inject index, the per-layer
-  noise and the path-length image noise. The step consumes them, so a test
-  can hand both packages the same draws, and a rematerialised synthesis
-  (`torch.utils.checkpoint`, which restores only the global RNG) sees the
-  same noise when it runs again.
-* `make_train_phases(cfg)` returns the phases `d`, `r1`, `g`, `path` and
-  `tail`; `make_train_step(cfg)` composes them in the JAX order. Each of
+  noise, the augmentation variates and the path-length image noise. The step
+  consumes them, so a test can hand both packages the same draws, and a
+  rematerialised synthesis (`torch.utils.checkpoint`, which restores only
+  the global RNG) sees the same noise when it runs again.
+* `make_train_phases(cfg)` returns the phases `d`, `r1`, `ada`, `g`, `path`
+  and `tail`; `make_train_step(cfg)` composes them in the JAX order. Each of
   `d`, `r1`, `g` and `path` returns (aux, grads) after its optimizer step,
-  grads in the order of the network's `parameters()`.
+  grads in the order of the network's `parameters()` (D's followed by the
+  head's).
 * Each phase holds TF32 off (`tf32(False, False)`) over its forward and its
   backward: cuDNN's default would run the backward convs in TF32.
 
 Exact options: gradient accumulation over `num_accumulate` microbatches,
 `reg_chunks` for R1 (sequential strided chunks, guarded so that a chunk keeps
 whole minibatch-stddev groups) and `remat_synth` (activation checkpointing of
-G's synthesis in the G phase). The path penalty in `reg_chunks` chunks draws
-fresh latents for each chunk, as the JAX package does: the same estimator,
-not the same numbers. ADA (`augment`), bCR and the
-contrastive regularizer are not ported yet (ROADMAP item 11, Queue 2c) and
-raise; `s2d_min_res` and `fast_phase_noise` are TPU layouts and are ignored.
+G's synthesis in the G phase; the augmentation runs after it). The path
+penalty in `reg_chunks` chunks draws fresh latents for each chunk, as the JAX
+package does: the same estimator, not the same numbers. R1 stays on raw
+reals, so no double backward passes through the warp. `s2d_min_res` and
+`fast_phase_noise` are TPU layouts and are ignored.
 """
 
 from __future__ import annotations
@@ -44,9 +50,17 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
-from ..models import Discriminator, Generator
+from ..models import Discriminator, Generator, channel_map
 from ..models.blocks import tf32
 from ..models.stylegan2 import noise_shapes
+from .augment import AugmentDraw, ada_adjust_p, augment, draw_augment
+from .contrastive import (
+    ContrastiveState,
+    ProjectionHead,
+    contrastive_regularizer_moco,
+    init_contrastive_state,
+    momentum_update,
+)
 from .ema import EMA_DECAY_DEFAULT, ema_update
 from .lookahead import LookaheadState, lookahead_minimax_init, lookahead_minimax_step
 from .losses import d_logistic_loss, d_r1_penalty, g_nonsaturating_loss, g_path_length_regularization
@@ -68,8 +82,7 @@ __all__ = [
 
 class TrainConfig(NamedTuple):
     """Training hyper-parameters: the fields and defaults of the JAX package's
-    TrainConfig (maua_tpu/train/step.py:40-114), less the ADA and contrastive
-    settings, which come with those features."""
+    TrainConfig (maua_tpu/train/step.py:40-114)."""
 
     size: int = 256
     latent_dim: int = 512
@@ -85,16 +98,29 @@ class TrainConfig(NamedTuple):
     channel_multiplier: int = 2
     channel_max: int = 512
     constant_input: bool = False
-    augment: bool = True  # ADA: not ported yet, must be False
-    augment_p: float = 0.0
+    augment: bool = True  # ADA
+    augment_p: float = 0.0  # 0 = adaptive
+    ada_target: float = 0.6
+    ada_length: float = 15_000.0  # per real prediction
     lookahead: bool = True
     la_steps: int = 500
     la_alpha: float = 0.5
     ema_decay: float = EMA_DECAY_DEFAULT
-    bcr_weight: float = 0.0  # not ported yet, must be 0
-    contrastive_weight: float = 0.0  # not ported yet, must be 0
+    bcr_weight: float = 0.0  # balanced consistency regularization
+    contrastive_weight: float = 0.0  # SimCLR regularizer on D's hidden layer
+    contrastive_loss_type: str = "infonce"  # "infonce" | "nt_xent"
+    # MoCo options: the key encoder's momentum (0 = keys through D itself) and
+    # a queue of past keys as extra negatives (0 = none; a multiple of
+    # 2 * batch_size: the fakes' and reals' keys are enqueued together)
+    contrastive_momentum: float = 0.0
+    contrastive_queue: int = 0
+    contrastive_bilinear: bool = False  # bilinear key transform
     bf16: bool = False  # bf16 convs in G synthesis and D (parameters stay fp32)
     s2d_min_res: int = -1  # TPU layout: ignored
+    ada_fast_warp: bool = False  # 1x-output-grid matmul warp
+    ada_warp_method: Optional[str] = None  # "fft" | "matmul" | "conv"; None = by ada_fast_warp and device
+    ada_fft_taper: Optional[float] = 0.85  # fft warp's band taper (None = off)
+    ada_fft_taper_conditional: bool = True  # taper only fractionally shifted rows
     fast_phase_noise: bool = True  # TPU layout: ignored
     reg_chunks: int = 1
     remat_synth: bool = False
@@ -109,18 +135,15 @@ def make_train_config(**kwargs) -> TrainConfig:
     return cfg._replace(r1=cfg.r1 * cfg.size**2)
 
 
-def _check_supported(cfg: TrainConfig) -> None:
-    if cfg.augment:
-        raise NotImplementedError(
-            "ADA augmentation is not ported to maua_tpu_torch yet (ROADMAP item 11: "
-            "train/augment.py and train/fft_warp.py, Queue 2c); train with augment=False "
-            "(--no-augment)"
-        )
-    if cfg.bcr_weight > 0 or cfg.contrastive_weight > 0:
-        raise NotImplementedError(
-            "balanced consistency and contrastive regularization are not ported to "
-            "maua_tpu_torch yet (ROADMAP item 11, with ADA)"
-        )
+STDDEV_GROUP = 4  # the Discriminator's minibatch-stddev group
+
+
+def fused_d_pass(cfg: TrainConfig, stddev_group: int = STDDEV_GROUP) -> bool:
+    """Whether the D phase applies D once to the interleaved [f0, r0, f1, r1,
+    ...] batch (and augments it with one [2B] draw): the stddev groups then
+    stride by 2B / group, an even number, so each group is all fake or all
+    real. bCR and the contrastive regularizer need the halves apart."""
+    return cfg.batch_size % stddev_group == 0 and cfg.bcr_weight == 0 and cfg.contrastive_weight == 0
 
 
 def reg_adjusted_adam(params, lr: float, reg_every: int) -> torch.optim.Adam:
@@ -140,19 +163,28 @@ class TrainState:
     d_optim: torch.optim.Adam
     lookahead: Optional[LookaheadState]
     mean_path_length: torch.Tensor  # 0-d fp32 on the device
-    ada_p: float = 0.0
+    ada_p: torch.Tensor  # 0-d fp32 on the device, and the two sign counts
+    ada_signs: torch.Tensor
+    ada_n: torch.Tensor
+    cl_head: Optional[ProjectionHead] = None
+    cl_state: Optional[ContrastiveState] = None
 
     @property
     def device(self) -> torch.device:
         return self.mean_path_length.device
 
+    def d_params(self) -> list[torch.Tensor]:
+        """What D's optimizer steps: D's parameters, then the head's."""
+        head = [] if self.cl_head is None else list(self.cl_head.parameters())
+        return list(self.d.parameters()) + head
+
 
 def init_train_state(cfg: TrainConfig, seed: int = 0, device: DeviceLike = None) -> TrainState:
     """Models, optimizers and the rest of the state, on `device` (default
     `cuda`; raises RuntimeError without a card). Weights are drawn from the
-    CPU generator seeded with `seed`, without touching the global RNG."""
+    CPU generator seeded with `seed`, without touching the global RNG; the
+    projection head's from a CPU generator seeded with `seed + 7`."""
     device = resolve_device(device)
-    _check_supported(cfg)
     dtype = torch.bfloat16 if cfg.bf16 else torch.float32
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
@@ -165,16 +197,33 @@ def init_train_state(cfg: TrainConfig, seed: int = 0, device: DeviceLike = None)
         )
     g, d = g.to(device).train(), d.to(device).train()
     g_ema = copy.deepcopy(g).requires_grad_(False).eval()
+    cl_head = cl_state = None
+    if cfg.contrastive_weight > 0:
+        if cfg.contrastive_queue > 0 and cfg.contrastive_queue % (2 * cfg.batch_size) != 0:
+            raise ValueError(
+                f"contrastive_queue ({cfg.contrastive_queue}) must be a multiple of 2*batch_size "
+                f"({2 * cfg.batch_size}): the fakes' and reals' keys are enqueued together"
+            )
+        feat_dim = channel_map(cfg.channel_multiplier, cfg.channel_max)[4] * 4 * 4  # D's hidden layer, [C, 4, 4]
+        cl_head = ProjectionHead(feat_dim, bilinear=cfg.contrastive_bilinear,
+                                 generator=torch.Generator().manual_seed(seed + 7)).to(device)
+        cl_state = init_contrastive_state(d, cfg.contrastive_momentum > 0, cfg.contrastive_queue, device=device)
+    zero = torch.zeros((), device=device)
+    head_params = [] if cl_head is None else list(cl_head.parameters())
     return TrainState(
         step=0,
         g=g,
         d=d,
         g_ema=g_ema,
         g_optim=reg_adjusted_adam(g.parameters(), cfg.lr, cfg.g_reg_every),
-        d_optim=reg_adjusted_adam(d.parameters(), cfg.lr, cfg.d_reg_every),
+        d_optim=reg_adjusted_adam(list(d.parameters()) + head_params, cfg.lr, cfg.d_reg_every),
         lookahead=lookahead_minimax_init(g.parameters(), d.parameters()) if cfg.lookahead else None,
-        mean_path_length=torch.zeros((), device=device),
-        ada_p=cfg.augment_p,
+        mean_path_length=zero,
+        ada_p=torch.full((), cfg.augment_p, device=device),
+        ada_signs=zero.clone(),
+        ada_n=zero.clone(),
+        cl_head=cl_head,
+        cl_state=cl_state,
     )
 
 
@@ -184,13 +233,17 @@ class MixDraw:
     """The draws of one style-mixed synthesis of `batch` samples: z1, z2
     [B, latent_dim]; mix [B] bool (mix this sample); inject [B] int64 in
     [1, n_latent) (the first layer that takes w2); noise: one [B, 1, H, W]
-    unit normal per layer."""
+    unit normal per layer; aug: the augmentation draws of the images made
+    from it (none without ADA; in the D phase one of [2B] for the fused
+    fake/real pass, else one for the fakes and one for the reals; in the G
+    phase one of [B])."""
 
     z1: torch.Tensor
     z2: torch.Tensor
     mix: torch.Tensor
     inject: torch.Tensor
     noise: list[torch.Tensor]
+    aug: tuple[AugmentDraw, ...] = ()
 
 
 @dataclass
@@ -203,9 +256,9 @@ class PathDraw(MixDraw):
 
 @dataclass
 class StepDraws:
-    """Draws of one step: `d` and `g` hold one MixDraw per microbatch, `path`
-    one PathDraw per path chunk (num_accumulate * reg_chunks) when the path
-    penalty is due, else none."""
+    """Draws of one step: `d` and `g` hold one MixDraw per microbatch (with
+    its augmentation draws), `path` one PathDraw per path chunk
+    (num_accumulate * reg_chunks) when the path penalty is due, else none."""
 
     d: list[MixDraw]
     g: list[MixDraw]
@@ -238,26 +291,30 @@ def draw_step(cfg: TrainConfig, step: int, generator: torch.Generator, device: D
     device = resolve_device(device)
     n_latent = _n_latent(cfg.size)
     shapes = noise_shapes(cfg.size)
+    b = cfg.batch_size
 
     def normal(*shape):
         return torch.randn(shape, generator=generator, device=device)
 
-    def mix_draw(batch, cls=MixDraw, **extra):
+    def mix_draw(batch, aug_batches=()):
         z1, z2 = normal(batch, cfg.latent_dim), normal(batch, cfg.latent_dim)
         mix = torch.rand((batch,), generator=generator, device=device) < cfg.mixing_prob
         inject = torch.randint(1, n_latent, (batch,), generator=generator, device=device)
         noise = [normal(batch, 1, s[2], s[3]) for s in shapes]
-        return cls(z1, z2, mix, inject, noise, **extra)
+        aug = tuple(draw_augment(n, generator, device) for n in aug_batches) if cfg.augment else ()
+        return MixDraw(z1, z2, mix, inject, noise, aug)
 
+    d_aug = (2 * b,) if fused_d_pass(cfg) else (b, b)
     draws = StepDraws(
-        d=[mix_draw(cfg.batch_size) for _ in range(cfg.num_accumulate)],
-        g=[mix_draw(cfg.batch_size) for _ in range(cfg.num_accumulate)],
+        d=[mix_draw(b, d_aug) for _ in range(cfg.num_accumulate)],
+        g=[mix_draw(b, (b,)) for _ in range(cfg.num_accumulate)],
     )
     if path_due(cfg, step):
         pb = _path_batch(cfg)
         for _ in range(cfg.num_accumulate * _reg_k(cfg)):
             d = mix_draw(pb)
-            draws.path.append(PathDraw(d.z1, d.z2, d.mix, d.inject, d.noise, normal(pb, 3, cfg.size, cfg.size)))
+            draws.path.append(PathDraw(d.z1, d.z2, d.mix, d.inject, d.noise,
+                                       img_noise=normal(pb, 3, cfg.size, cfg.size)))
     return draws
 
 
@@ -299,15 +356,18 @@ def make_train_phases(cfg: TrainConfig) -> dict[str, Callable[..., Any]]:
 
       d(state, real [A, B, 3, H, W], draws.d)  -> (aux, grads)
       r1(state, real)                          -> (r1 sum, grads)
+      ada(state, d aux)                        -> r_t
       g(state, draws.g)                        -> (loss sum, grads)
       path(state, draws.path)                  -> (penalty sum, grads)
       tail(state)                              -> None (lookahead, EMA, step + 1)
     """
-    _check_supported(cfg)
     reg_k = _reg_k(cfg)
     n_acc = cfg.num_accumulate
     if cfg.batch_size % reg_k != 0:
         raise ValueError(f"reg_chunks ({reg_k}) must divide batch_size ({cfg.batch_size})")
+    aug_kw = dict(fast_warp=cfg.ada_fast_warp, warp_method=cfg.ada_warp_method, fft_taper=cfg.ada_fft_taper,
+                  fft_taper_conditional=cfg.ada_fft_taper_conditional)
+    adt = torch.bfloat16 if cfg.bf16 else torch.float32  # augment in D's compute dtype
 
     def check_chunks(d: Discriminator) -> None:
         if reg_k > 1 and (cfg.batch_size // reg_k) % d.stddev_group != 0:
@@ -318,38 +378,72 @@ def make_train_phases(cfg: TrainConfig) -> dict[str, Callable[..., Any]]:
                 f"the discriminator stddev group ({d.stddev_group})"
             )
 
+    def aug_draws(draw: MixDraw, n: int) -> tuple[AugmentDraw, ...]:
+        if len(draw.aug) != n:
+            raise ValueError(f"augmentation is on and this pass takes {n} augmentation draws; the draw holds {len(draw.aug)}")
+        return draw.aug
+
+    def aug(img: torch.Tensor, p: torch.Tensor, draw: AugmentDraw) -> torch.Tensor:
+        return augment(img, p, draw, **aug_kw)[0]
+
     # ---------------- D phase ----------------
-    def d_phase(state: TrainState, real_imgs: torch.Tensor, draws: list[MixDraw]):
+    def d_microbatch(state: TrainState, real: torch.Tensor, draw: MixDraw, cl_state):
         g, d = state.g, state.d
-        params = list(d.parameters())
-        grads = None
-        aux = {"d_loss": 0.0, "real_score": 0.0, "fake_score": 0.0}
+        b = real.shape[0]
+        with torch.no_grad():
+            fake = synth(g, mixed_wplus(g, draw), draw.noise)
+        fake_in, real_in = fake.to(adt), real.to(adt)
+        fuse = fused_d_pass(cfg, d.stddev_group)
+        if fuse:
+            # one interleaved [f0, r0, f1, r1, ...] pass, augmented with one draw
+            both = torch.stack([fake_in, real_in], dim=1).reshape(2 * b, *real.shape[1:])
+            if cfg.augment:
+                both = aug(both, state.ada_p, aug_draws(draw, 1)[0])
+            pred = d(both)
+            fake_pred, real_pred = pred[0::2], pred[1::2]
+        else:
+            if cfg.augment:
+                fake_draw, real_draw = aug_draws(draw, 2)
+                fake_aug, real_aug = aug(fake_in, state.ada_p, fake_draw), aug(real_in, state.ada_p, real_draw)
+            else:
+                fake_aug, real_aug = fake, real
+            fake_pred, real_pred = d(fake_aug), d(real_aug)
+        loss = d_logistic_loss(real_pred, fake_pred)
+        if cfg.bcr_weight > 0:  # balanced consistency: augmented against raw
+            bcr = (real_pred - d(real)).square().mean() + (fake_pred - d(fake)).square().mean()
+            loss = loss + cfg.bcr_weight * bcr
+        if cfg.contrastive_weight > 0:
+            # queries from the raw fakes and reals, keys from their augmented copies
+            key_d = None if cl_state is None else cl_state.key_d
+            cl, cl_state = contrastive_regularizer_moco(
+                d.hidden, None if key_d is None else key_d.hidden, state.cl_head, cl_state,
+                [fake, real], [fake_aug, real_aug], loss_type=cfg.contrastive_loss_type,
+            )
+            loss = loss + cfg.contrastive_weight * cl
+        aux = {"d_loss": loss.detach(), "real_score": real_pred.detach().mean(), "fake_score": fake_pred.detach().mean(),
+               "sign_sum": torch.sign(real_pred.detach()).sum(),
+               "n_pred": torch.full((), float(real_pred.shape[0]), device=real.device)}
+        return loss, aux, cl_state
+
+    def d_phase(state: TrainState, real_imgs: torch.Tensor, draws: list[MixDraw]):
+        params = state.d_params()
+        grads, aux, cl_state = None, None, state.cl_state
         with tf32(conv=False, matmul=False):
             for real, draw in zip(real_imgs, draws):
-                b = real.shape[0]
-                with torch.no_grad():
-                    fake = synth(g, mixed_wplus(g, draw), draw.noise)
-                if b % d.stddev_group == 0:
-                    # one interleaved [f0, r0, f1, r1, ...] application: the
-                    # stddev groups stride by 2B / group, an even number, so
-                    # each group is all fake or all real
-                    pred = d(torch.stack([fake, real], dim=1).reshape(2 * b, *real.shape[1:]))
-                    fake_pred, real_pred = pred[0::2], pred[1::2]
-                else:
-                    fake_pred, real_pred = d(fake), d(real)
-                loss = d_logistic_loss(real_pred, fake_pred)
+                loss, mb_aux, cl_state = d_microbatch(state, real, draw, cl_state)
                 grads = _add_grads(params, loss / n_acc, grads)
-                aux["d_loss"] += loss.detach()
-                aux["real_score"] += real_pred.detach().mean()
-                aux["fake_score"] += fake_pred.detach().mean()
+                aux = mb_aux if aux is None else {k: aux[k] + v for k, v in mb_aux.items()}
         _apply(state.d_optim, params, grads)
+        if cfg.contrastive_momentum > 0:
+            momentum_update(cl_state, state.d, cfg.contrastive_momentum)
+        state.cl_state = cl_state
         return aux, grads
 
     # ---------------- R1 phase (lazy) ----------------
     def r1_phase(state: TrainState, real_imgs: torch.Tensor):
         d = state.d
         check_chunks(d)
-        params = list(d.parameters())
+        params = state.d_params()  # the head takes zero gradients
         a, b = real_imgs.shape[:2]
         # strided chunks: chunk c holds samples c, c + k, c + 2k, ... Minibatch
         # stddev groups along the outer axis (member g of statistic j is sample
@@ -367,6 +461,16 @@ def make_train_phases(cfg: TrainConfig) -> dict[str, Callable[..., Any]]:
         _apply(state.d_optim, params, grads)
         return r1_sum, grads
 
+    # ---------------- ADA p-adaptation, between R1 and G ----------------
+    def ada_phase(state: TrainState, d_aux: dict) -> torch.Tensor:
+        if not (cfg.augment and cfg.augment_p == 0):
+            return torch.zeros((), device=state.device)
+        state.ada_p, state.ada_signs, state.ada_n, r_t = ada_adjust_p(
+            state.ada_p, state.ada_signs + d_aux["sign_sum"], state.ada_n + d_aux["n_pred"],
+            cfg.ada_target, cfg.ada_length,
+        )
+        return r_t
+
     # ---------------- G phase ----------------
     def g_phase(state: TrainState, draws: list[MixDraw]):
         g, d = state.g, state.d
@@ -380,6 +484,8 @@ def make_train_phases(cfg: TrainConfig) -> dict[str, Callable[..., Any]]:
                     fake = checkpoint(lambda w, *n: synth(g, w, list(n)), wplus, *draw.noise, use_reentrant=False)
                 else:
                     fake = synth(g, wplus, draw.noise)
+                if cfg.augment:
+                    fake = aug(fake.to(adt), state.ada_p, aug_draws(draw, 1)[0])
                 loss = g_nonsaturating_loss(d(fake))
                 grads = _add_grads(params, loss / n_acc, grads)
                 loss_sum += loss.detach()
@@ -414,7 +520,7 @@ def make_train_phases(cfg: TrainConfig) -> dict[str, Callable[..., Any]]:
         ema_update(state.g_ema.parameters(), state.g.parameters(), cfg.ema_decay)
         state.step += 1
 
-    return {"d": d_phase, "r1": r1_phase, "g": g_phase, "path": path_phase, "tail": tail}
+    return {"d": d_phase, "r1": r1_phase, "ada": ada_phase, "g": g_phase, "path": path_phase, "tail": tail}
 
 
 def prepare_reals(real_imgs: torch.Tensor) -> torch.Tensor:
@@ -431,9 +537,10 @@ def prepare_reals(real_imgs: torch.Tensor) -> torch.Tensor:
 
 def make_train_step(cfg: TrainConfig):
     """train_step(state, real_imgs, draws) -> metrics (0-d tensors, the JAX
-    package's names). real_imgs: [A, B, 3, H, W] float in [-1, 1] or
-    [A, B, H, W, 3] uint8 (normalised on its device); draws from `draw_step`
-    for `state.step`."""
+    package's names, plus the D phase's `sign_sum` and `n_pred` of real
+    predictions that feed ADA's p). real_imgs: [A, B, 3, H, W] float in
+    [-1, 1] or [A, B, H, W, 3] uint8 (normalised on its device); draws from
+    `draw_step` for `state.step`."""
     phases = make_train_phases(cfg)
 
     def train_step(state: TrainState, real_imgs: torch.Tensor, draws: StepDraws) -> dict[str, torch.Tensor]:
@@ -441,6 +548,7 @@ def make_train_step(cfg: TrainConfig):
         zero = torch.zeros((), device=real_imgs.device)
         d_aux, _ = phases["d"](state, real_imgs, draws.d)
         r1_val = phases["r1"](state, real_imgs)[0] if r1_due(cfg, state.step) else zero
+        r_t = phases["ada"](state, d_aux)
         g_loss, _ = phases["g"](state, draws.g)
         if path_due(cfg, state.step):
             if len(draws.path) != cfg.num_accumulate * _reg_k(cfg):
@@ -457,9 +565,11 @@ def make_train_step(cfg: TrainConfig):
             "Fake Score": d_aux["fake_score"] / n_acc,
             "R1 Penalty": r1_val / n_acc,
             "Path Length Regularization": path_pen / n_acc,
-            "Rt": zero,
-            "Augment": torch.full((), float(state.ada_p), device=zero.device),
+            "Rt": r_t,
+            "Augment": state.ada_p,
             "Mean Path Length": state.mean_path_length,
+            "sign_sum": d_aux["sign_sum"],
+            "n_pred": d_aux["n_pred"],
         }
 
     return train_step

@@ -4,9 +4,13 @@ Against the JAX package: MREC shards (raw and JPEG) written by one package
 are read by the other and are byte-identical when both write the same
 records; the synthetic dataset is the same from the same seed; the datasets
 decode the same images; one-worker loaders give the same batches and flips.
-Within the port: a checkpoint round trip whose `g_ema` renders through
-`load_generator`, resuming from a rosinality {g, d, g_ema} `.pt`, and the CLI
-(two steps at 16^2 on the CPU; without --no-augment it refuses).
+`prepare_data` writes shards byte-equal to the JAX package's from a folder
+of PNGs. Within the port: a checkpoint round trip whose `g_ema` renders
+through `load_generator` (and one of the ADA and contrastive state, and a
+checkpoint written before ADA was ported), resuming from a rosinality {g,
+d, g_ema} `.pt`, and the CLI (two steps at 16^2 on the CPU with and without
+ADA, with bCR and the contrastive regularizer; the flags of work not ported
+yet refuse; without a card and without --device cpu it raises).
 """
 
 import filecmp
@@ -181,6 +185,75 @@ def test_checkpoint_round_trip_and_g_ema_renders(tmp_path):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
 
 
+def test_checkpoint_round_trip_of_ada_and_contrastive_state(tmp_path):
+    """ADA's p and counts, the head, D's Adam state over (D, head), the key
+    encoder and the queue come back exactly; a checkpoint written before ADA
+    was ported (p a float, no counts) restores with zero counts."""
+    from maua_tpu_torch.train import draw_step, make_train_step
+
+    kw = dict(CFG, augment=True, augment_p=0.3, contrastive_weight=0.1, contrastive_momentum=0.9, contrastive_queue=16)
+    cfg = make_train_config(**kw)
+    st = init_train_state(cfg, seed=1, device="cpu")
+    real = torch.from_numpy(np.random.RandomState(0).uniform(-1, 1, (1, 4, 3, 16, 16)).astype(np.float32))
+    make_train_step(cfg)(st, real, draw_step(cfg, 0, torch.Generator().manual_seed(0), "cpu"))
+    st.ada_signs, st.ada_n = torch.tensor(3.0), torch.tensor(12.0)
+    path = save_checkpoint(str(tmp_path), st)
+    fresh = restore_checkpoint(path, init_train_state(cfg, seed=9, device="cpu"))
+    for name in ("ada_p", "ada_signs", "ada_n"):
+        torch.testing.assert_close(getattr(fresh, name), getattr(st, name), rtol=0, atol=0)
+    for a, b in zip(fresh.cl_head.parameters(), st.cl_head.parameters()):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for a, b in zip(fresh.cl_state.key_d.parameters(), st.cl_state.key_d.parameters()):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for name in ("queue", "queue_ptr", "queue_filled"):
+        torch.testing.assert_close(getattr(fresh.cl_state, name), getattr(st.cl_state, name), rtol=0, atol=0)
+    assert int(fresh.cl_state.queue_filled) == 8
+    assert len(fresh.d_optim.state) == len(st.d_optim.state) == len(st.d_params())
+
+    old = torch.load(path, weights_only=False)
+    plain_cfg = make_train_config(**CFG)
+    plain = init_train_state(plain_cfg, seed=1, device="cpu")
+    old.update(d=plain.d.state_dict(), g=plain.g.state_dict(), g_ema=plain.g_ema.state_dict(),
+               d_optim=plain.d_optim.state_dict(), ada_p=0.25)
+    for key in ("ada_signs", "ada_n", "cl_head", "cl_state"):
+        del old[key]
+    torch.save(old, tmp_path / "old.pt")
+    back = restore_checkpoint(str(tmp_path / "old.pt"), init_train_state(plain_cfg, seed=2, device="cpu"))
+    assert back.ada_p.dtype == torch.float32 and back.ada_p.ndim == 0 and float(back.ada_p) == 0.25
+    assert float(back.ada_signs) == float(back.ada_n) == 0.0
+
+
+def test_prepare_data_shards_equal_jax(tmp_path):
+    """A folder of PNGs (and a subfolder, and a file that is no image):
+    prepare_data writes JPEG and raw shards at two sides byte-equal to the
+    JAX package's, in two chunks; the port's through two worker processes
+    (spawned), the JAX package's in this process (its pool forks, which a
+    process running JAX's threads must not do)."""
+    import cv2
+
+    from maua_tpu.data.prepare import prepare_data as jax_prepare_data
+    from maua_tpu_torch.data import prepare_data
+
+    src = tmp_path / "images"
+    (src / "sub").mkdir(parents=True)
+    rng = np.random.RandomState(0)
+    for i in range(5):
+        h, w = (20, 28) if i % 2 else (30, 18)
+        cv2.imwrite(str(src / ("sub" if i == 4 else "") / f"img{i}.png"), rng.randint(0, 256, (h, w, 3)).astype(np.uint8))
+    (src / "notes.txt").write_text("not an image")
+    for fmt in ("jpeg", "raw"):
+        out = {}
+        for name, fn, workers in (("port", prepare_data, 2), ("jax", jax_prepare_data, 1)):
+            out[name] = tmp_path / f"{name}_{fmt}"
+            assert fn(str(src), str(out[name]), sizes=(8, 16), n_workers=workers, shard_size=3, fmt=fmt) == 5
+        names = sorted(os.listdir(out["port"]))
+        assert names == sorted(os.listdir(out["jax"])) and len(names) == 4
+        for n in names:
+            assert filecmp.cmp(out["port"] / n, out["jax"] / n, shallow=False), n
+    ds = MultiResolutionRecordDataset(str(tmp_path / "port_raw"), 16, uint8_hwc=True)
+    assert len(ds) == 5 and ds[0].shape == (16, 16, 3)
+
+
 def test_load_rosinality_training_checkpoint(tmp_path):
     """A {g, d, g_ema} .pt without FIR kernel buffers: weights loaded, the step
     from the file name, the lookahead cache restarted from the loaded
@@ -232,11 +305,51 @@ def test_cli_trains_two_steps_and_resumes(shards, tmp_path):
 
 
 def test_cli_refuses_unported_work(shards, tmp_path):
+    """Eval, wandb, spectral norms, the monitor, the trace capture and
+    multi-host flags refuse (ADA, bCR and contrastive run, tested below)."""
     run = str(tmp_path / "run")
-    with pytest.raises(NotImplementedError, match="--no-augment"):
-        main(_cli_args(shards, run, "--iter", "1"))
-    for flag in (["--eval_every", "5"], ["--wandb"], ["--monitor"], ["--balanced_consistency", "1"],
+    for flag in (["--eval_every", "5"], ["--wandb"], ["--log_spec_norm"], ["--monitor"], ["--profile"],
                  ["--num_processes", "2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP|metrics.jsonl"):
-            main(_cli_args(shards, run, "--no-augment", "--iter", "1", *flag))
+            main(_cli_args(shards, run, "--iter", "1", *flag))
     assert not os.path.exists(os.path.join(run, "metrics.jsonl"))
+
+
+def test_cli_trains_with_ada_bcr_and_contrastive(shards, tmp_path, monkeypatch):
+    """The JAX CLI's default (ADA on, adaptive p) for two steps, and bCR +
+    contrastive + MoCo (queue 8) for one: finite metrics, ADA's counts
+    logged, the resolved warp the CPU's (None, i.e. conv), and a resume
+    that carries p, the counts, the head and the queue. Without --device
+    cpu and without a card the CLI raises RuntimeError."""
+    run = str(tmp_path / "ada")
+    state = train_loop(build_parser().parse_args(_cli_args(shards, run, "--iter", "2")))
+    lines = [json.loads(x) for x in open(os.path.join(run, "metrics.jsonl"))]
+    assert [x["step"] for x in lines] == [0, 1] and all(x["n_pred"] == 4 for x in lines)
+    assert all(np.isfinite(v) for x in lines for v in x.values())
+    assert state.ada_n.item() == 8 and state.ada_p.item() == 0.0  # below the 256-prediction threshold
+
+    run = str(tmp_path / "cl")
+    flags = ["--balanced_consistency", "1", "--contrastive", "0.1", "--contrastive_momentum", "0.99",
+             "--contrastive_queue", "8"]
+    state = train_loop(build_parser().parse_args(_cli_args(shards, run, "--iter", "1", *flags)))
+    assert int(state.cl_state.queue_filled) == 8 and state.cl_head is not None
+    resumed = train_loop(build_parser().parse_args(_cli_args(shards, run, "--iter", "1", "--resume", *flags)))
+    assert resumed.step == 1
+    torch.testing.assert_close(resumed.cl_state.queue, state.cl_state.queue, rtol=0, atol=0)
+    torch.testing.assert_close(resumed.cl_head.w1, state.cl_head.w1, rtol=0, atol=0)
+    torch.testing.assert_close(resumed.ada_n, state.ada_n, rtol=0, atol=0)
+
+    import io
+    from contextlib import redirect_stdout
+
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        train_loop(build_parser().parse_args(_cli_args(shards, run, "--print_config", "--ada_fft_taper", "0")))
+    cfg = json.loads(buf.getvalue())
+    assert cfg["augment"] and cfg["ada_warp_method"] is None and cfg["ada_fft_taper"] is None
+    assert not cfg["ada_fast_warp"] and cfg["ada_fft_taper_conditional"]
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = [a for a in _cli_args(shards, str(tmp_path / "nocard"), "--iter", "1") if a not in ("--device", "cpu")]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(args)

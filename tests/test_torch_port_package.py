@@ -48,8 +48,9 @@ def test_package_imports_no_jax_or_maua_tpu():
     )
     assert out.returncode == 0, out.stderr
     n_modules, names, bad = out.stdout.strip().split(" ", 2)
-    assert int(n_modules) >= 47
-    for sub in ("train.step", "train.cli", "train.checkpoint", "data.loader", "data.records", "data.synthetic",
+    assert int(n_modules) >= 52
+    for sub in ("train.step", "train.cli", "train.checkpoint", "train.augment", "train.fft_warp", "train.contrastive",
+                "ops.gather", "data.prepare", "data.loader", "data.records", "data.synthetic",
                 "audio.postprocess", "audio.dsp", "audio.hpss", "audio.onsets", "audio.chroma", "audio.features",
                 "audio.io", "audio.segmentation", "audio.util", "reactive.latent", "reactive.noise", "reactive.bend",
                 "pipeline.defaults", "pipeline.generate", "pipeline.cli", "examples.tauceti", "examples.kelp"):

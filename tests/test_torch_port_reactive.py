@@ -193,7 +193,9 @@ def test_bilinear_gather_matches_jax():
     img = rnd(2, 3, 5, 7)
     px = np.random.default_rng(1).uniform(-2, 9, (2, 4, 6)).astype(np.float32)
     py = np.random.default_rng(2).uniform(-2, 7, (2, 4, 6)).astype(np.float32)
-    close(tbend._bilinear_gather(t(img), t(px), t(py)), jbend._bilinear_gather(jnp.asarray(img), jnp.asarray(px), jnp.asarray(py)), 1e-5)
+    from maua_tpu_torch.ops.gather import bilinear_gather
+
+    close(bilinear_gather(t(img), t(px), t(py)), jbend._bilinear_gather(jnp.asarray(img), jnp.asarray(px), jnp.asarray(py)), 1e-5)
 
 
 def test_print_bend_and_bends_for_batch(capsys):

@@ -18,7 +18,9 @@ with the same keys, and read the per-layer noise the JAX Generator draws by
 running it with zeroed conv weights and unit noise weights, which makes each
 NoiseInjection output exactly its noise. The JAX optimizers have b1 = 0, so
 the first moment of a fresh Adam state after one update is exactly the
-gradient: that is how the JAX side's gradients are read.
+gradient: that is how the JAX side's gradients are read. With ADA, the
+augmentation variates are rebuilt from the JAX phases' keys as well
+(`test_torch_port_augment.jax_augment_draw`).
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ from maua_tpu.train.step import GANTrainState, _reg_adjusted_adam
 from maua_tpu.train.step import make_train_config as jax_make_train_config
 from maua_tpu_torch.io import discriminator_state_dict_from_jax, generator_state_dict_from_jax
 from maua_tpu_torch.train import MixDraw, PathDraw, init_train_state, make_train_config
+from maua_tpu_torch.train.step import fused_d_pass
+from test_torch_port_augment import jax_augment_draw
 
 CFG = dict(size=16, batch_size=4, channel_max=32, latent_dim=32, augment=False, lookahead=False)
 
@@ -87,7 +91,7 @@ class JaxSide:
             lookahead=None,
             cl_head=None,
             mean_path_length=jnp.zeros(()),
-            ada_p=jnp.asarray(0.0, jnp.float32),
+            ada_p=jnp.asarray(jcfg.augment_p, jnp.float32),
             ada_signs=jnp.zeros(()),
             ada_n=jnp.zeros(()),
             cl_state=None,
@@ -132,20 +136,30 @@ class JaxSide:
         if img_key is None:
             return MixDraw(z1, z2, mix, inject, noise)
         img = t(jax.random.normal(img_key, (batch, 3, self.cfg.size, self.cfg.size)))
-        return PathDraw(z1, z2, mix, inject, noise, img)
+        return PathDraw(z1, z2, mix, inject, noise, img_noise=img)
 
     def d_draws(self, rng) -> list:
-        out = []
+        """With ADA: one [2B] augmentation draw for the fused fake/real pass
+        (key ka1), else one [B] draw for the fakes (ka1) and one for the
+        reals (ka2)."""
+        out, b = [], self.cfg.batch_size
         for key in jax.random.split(rng, self.cfg.num_accumulate):
-            kw, kn, _, _ = jax.random.split(key, 4)
-            out.append(self.mix_draw(kw, kn, self.cfg.batch_size))
+            kw, kn, ka1, ka2 = jax.random.split(key, 4)
+            draw = self.mix_draw(kw, kn, b)
+            if self.cfg.augment:
+                fused = fused_d_pass(self.cfg, self.disc.stddev_group)
+                draw.aug = (jax_augment_draw(ka1, 2 * b),) if fused else (jax_augment_draw(ka1, b), jax_augment_draw(ka2, b))
+            out.append(draw)
         return out
 
     def g_draws(self, rng) -> list:
         out = []
         for key in jax.random.split(rng, self.cfg.num_accumulate):
-            kw, kn, _ = jax.random.split(key, 3)
-            out.append(self.mix_draw(kw, kn, self.cfg.batch_size))
+            kw, kn, ka = jax.random.split(key, 3)
+            draw = self.mix_draw(kw, kn, self.cfg.batch_size)
+            if self.cfg.augment:
+                draw.aug = (jax_augment_draw(ka, self.cfg.batch_size),)
+            out.append(draw)
         return out
 
     def path_draws(self, rng) -> list:
@@ -156,6 +170,24 @@ class JaxSide:
             kw, kn, kimg = jax.random.split(key, 3)
             out.append(self.mix_draw(kw, kn, pb, img_key=kimg))
         return out
+
+    def add_contrastive(self, st) -> None:
+        """The port state's projection head, key encoder and queue, carried
+        across; D's Adam state spans (D, head) as in the JAX package."""
+        from maua_tpu.train.contrastive import ContrastiveState
+
+        np_ = lambda v: jnp.asarray(v.detach().numpy().copy())  # noqa: E731
+        head = {k: np_(v) for k, v in st.cl_head.state_dict().items()}
+        cl, cl_j = st.cl_state, None
+        if cl is not None:
+            key = None if cl.key_d is None else discriminator_variables_from_torch(
+                {k: v.numpy().copy() for k, v in cl.key_d.state_dict().items()})["params"]
+            cl_j = ContrastiveState(key, np_(cl.queue), jnp.asarray(int(cl.queue_ptr), jnp.int32),
+                                    jnp.asarray(int(cl.queue_filled), jnp.int32))
+        self.state = self.state.replace(
+            cl_head=head, cl_state=cl_j,
+            d_opt_state=_reg_adjusted_adam(self.cfg.lr, self.cfg.d_reg_every).init((self.state.d_params, head)),
+        )
 
     def grads_d(self, new_state) -> dict[str, np.ndarray]:
         mu = new_state.d_opt_state[0].mu[0]
@@ -463,3 +495,76 @@ def test_r1_phase_matches_jax(batch, reg_chunks):
     r1_t, grads_t = make_train_phases(cfg)["r1"](st, torch.from_numpy(real))
     np.testing.assert_allclose(float(r1_t), float(r1_j), rtol=1e-5)
     assert_grads_close(port_grads(st.d, grads_t), js.grads_d(new), GRAD_RTOL)
+
+
+# ---------------------------------------------------------------- D phase with ADA, bCR, contrastive
+ADA = dict(augment=True, augment_p=0.5)
+
+
+@pytest.mark.parametrize("batch,over", [
+    (4, {}),  # the fused [2B] pass, augmented with one draw
+    pytest.param(2, {}, marks=pytest.mark.slow),  # a batch the stddev group does not divide: apart
+    (4, dict(bcr_weight=1.0)),  # bCR: fakes and reals apart
+    pytest.param(4, dict(ada_warp_method="fft"), marks=pytest.mark.slow),
+])
+def test_d_phase_with_ada_matches_jax(batch, over):
+    """ADA at p = 0.5 on the JAX phase's own augmentation draws (CPU warp:
+    conv, or fft): D loss and scores (rtol 1e-5), ADA's sign sum and count
+    (exact), D gradients (max abs <= 1e-4 x the tensor's max)."""
+    kw = {**ADA, **over, "batch_size": batch}
+    cfg, st = port_state(**kw)
+    js = JaxSide(st, **kw)
+    real = _reals(1, batch)
+    rng = jax.random.PRNGKey(22)
+    new, aux_j = jax_make_train_phases(js.gen, js.disc, js.cfg)["d"](js.state, jnp.asarray(real), rng)
+    draws = js.d_draws(rng)
+    assert len(draws[0].aug) == (1 if batch == 4 and "bcr_weight" not in over else 2)
+    aux_t, grads_t = make_train_phases(cfg)["d"](st, torch.from_numpy(real), draws)
+    for k in ("d_loss", "real_score", "fake_score"):
+        np.testing.assert_allclose(float(aux_t[k]), float(aux_j[k]), rtol=1e-5, atol=1e-6)
+    for k in ("sign_sum", "n_pred"):
+        assert float(aux_t[k]) == float(aux_j[k]), k
+    assert_grads_close(port_grads(st.d, grads_t), js.grads_d(new), GRAD_RTOL)
+
+
+@pytest.mark.parametrize("momentum,queue", [pytest.param(0.0, 0, marks=pytest.mark.slow), (0.9, 16)])
+def test_d_phase_with_contrastive_matches_jax(momentum, queue):
+    """The contrastive regularizer (weight 0.5, bilinear key transform) in
+    the unfused ADA D phase; with MoCo a key encoder that differs from D and
+    a half-filled queue of 16. Loss (rtol 1e-5), D's and the head's
+    gradients (max abs <= 1e-4 x max), the new queue (1e-5), cursor and
+    fill, and the key encoder moved towards the updated D by the momentum
+    rule (rtol 1e-6; the rule itself is held against the JAX package in
+    test_torch_port_contrastive.py)."""
+    kw = dict(ADA, contrastive_weight=0.5, contrastive_bilinear=True, contrastive_momentum=momentum,
+              contrastive_queue=queue)
+    cfg, st = port_state(**kw)
+    rng_np = np.random.RandomState(30)
+    with torch.no_grad():
+        st.cl_head.bw.add_(torch.from_numpy(0.1 * rng_np.randn(128, 128).astype(np.float32)))
+        if st.cl_state is not None:
+            for p in st.cl_state.key_d.parameters():
+                p.add_(torch.from_numpy(0.05 * rng_np.randn(*p.shape).astype(np.float32)))
+            q = torch.from_numpy(rng_np.randn(queue, 128).astype(np.float32))
+            q[8:] = 0
+            st.cl_state = st.cl_state._replace(queue=q / q.norm(dim=1, keepdim=True).clamp(min=1e-8),
+                                               queue_ptr=torch.tensor(8), queue_filled=torch.tensor(8))
+    js = JaxSide(st, **kw)
+    js.add_contrastive(st)
+    key0 = [] if st.cl_state is None else [p.clone() for p in st.cl_state.key_d.parameters()]
+    real = _reals(1, 4)
+    rng = jax.random.PRNGKey(23)
+    new, aux_j = jax_make_train_phases(js.gen, js.disc, js.cfg)["d"](js.state, jnp.asarray(real), rng)
+    aux_t, grads_t = make_train_phases(cfg)["d"](st, torch.from_numpy(real), js.d_draws(rng))
+    np.testing.assert_allclose(float(aux_t["d_loss"]), float(aux_j["d_loss"]), rtol=1e-5, atol=1e-6)
+    assert_grads_close(port_grads(st.d, grads_t), js.grads_d(new), GRAD_RTOL)
+    n_d = len(list(st.d.parameters()))
+    head_mu = new.d_opt_state[0].mu[1]
+    assert_grads_close({n: g.numpy() for (n, _), g in zip(st.cl_head.named_parameters(), grads_t[n_d:])},
+                       {k: np.asarray(v) for k, v in head_mu.items()}, GRAD_RTOL)
+    if queue:
+        np.testing.assert_allclose(st.cl_state.queue.numpy(), np.asarray(new.cl_state.queue), rtol=0, atol=1e-5)
+        assert int(st.cl_state.queue_ptr) == int(new.cl_state.queue_ptr) == 0
+        assert int(st.cl_state.queue_filled) == int(new.cl_state.queue_filled) == 16
+        for k, k0, p in zip(st.cl_state.key_d.parameters(), key0, st.d.parameters()):
+            torch.testing.assert_close(k, k0 * 0.9 + 0.1 * p, rtol=1e-6, atol=1e-7)

@@ -4,11 +4,13 @@ test_torch_port_train.py: one narrow model in both packages, the JAX phases'
 own draws carried across, JAX gradients read from Adam's first moment).
 
 Against the JAX package: the G phase (loss and G gradients, the mapping
-network's included) and the path-length phase (penalty, the new running mean
-and G gradients, the mapping network's included, unchunked and in two
-chunks). Within the port: R1 in chunks against R1 unchunked, the G phase with
+network's included; also with ADA on the JAX phase's augmentation draws),
+the ADA phase, and the path-length phase (penalty, the new running mean and
+G gradients, the mapping network's included, unchunked and in two chunks).
+Within the port: R1 in chunks against R1 unchunked, the G phase with
 `remat_synth` against the G phase without it, a uint8 batch against the same
-batch in fp32, the guards, and a whole step with lookahead and EMA.
+batch in fp32, the guards, a whole step with lookahead and EMA, and one step
+of each ADA, bCR and contrastive configuration.
 """
 
 import copy
@@ -21,16 +23,17 @@ import torch
 
 from maua_tpu.train.step import make_train_phases as jax_make_train_phases
 from maua_tpu_torch.train import draw_step, make_train_phases, make_train_step
-from test_torch_port_train import GRAD_RTOL, JaxSide, assert_grads_close, port_grads, port_state
+from test_torch_port_train import ADA, GRAD_RTOL, JaxSide, assert_grads_close, port_grads, port_state
 
 
-@pytest.mark.parametrize("constant_input", [True, False])
-def test_g_phase_matches_jax(constant_input):
+@pytest.mark.parametrize("constant_input,over", [(True, {}), (False, {}), (True, ADA), (True, dict(ADA, remat_synth=True))])
+def test_g_phase_matches_jax(constant_input, over):
     """Non-saturating G loss (rtol 1e-5) and G gradients, mapping layers
     included (max abs <= 1e-4 x the tensor's max), with constant and with
-    latent-mapped input."""
-    cfg, st = port_state(constant_input=constant_input)
-    js = JaxSide(st, constant_input=constant_input)
+    latent-mapped input; with ADA at p = 0.5 (the gradient passes back
+    through the warp) after a plain or a rematerialised synthesis."""
+    cfg, st = port_state(constant_input=constant_input, **over)
+    js = JaxSide(st, constant_input=constant_input, **over)
     rng = jax.random.PRNGKey(31)
     new, loss_j = jax_make_train_phases(js.gen, js.disc, js.cfg)["g"](js.state, rng)
     loss_t, grads_t = make_train_phases(cfg)["g"](st, js.g_draws(rng))
@@ -141,19 +144,77 @@ def test_train_step_runs_every_phase_with_lookahead_and_ema():
                 torch.testing.assert_close(p, s, rtol=0, atol=0)
     assert st.step == 4 and st.lookahead.step == 4
     assert set(m) == {"Generator", "Discriminator", "Real Score", "Fake Score", "R1 Penalty",
-                      "Path Length Regularization", "Rt", "Augment", "Mean Path Length"}
+                      "Path Length Regularization", "Rt", "Augment", "Mean Path Length", "sign_sum", "n_pred"}
     moved = [float((e - e0).abs().max()) for e, e0 in zip(st.g_ema.parameters(), ema0)]
     assert max(moved) > 0
     with pytest.raises(ValueError, match="path"):
         step(st, _reals(1, 4), draw_step(cfg, 1, gen, "cpu"))
 
 
-def test_unported_options_raise():
-    from maua_tpu_torch.train import init_train_state, make_train_config
+@pytest.mark.parametrize("p,signs,n", [(0.0, 3.0, 4.0), (0.2, 4.0, 300.0), (0.2, -100.0, 300.0)])
+def test_ada_phase_matches_jax(p, signs, n):
+    """Adaptive p between R1 and G: the D phase's sign sum and count added to
+    the state's, p stepped once more than 256 predictions are counted, the
+    counts reset; p, the counts and r_t exact. A fixed p does not move."""
+    cfg, st = port_state(augment=True)
+    js = JaxSide(st, augment=True)
+    st.ada_p, st.ada_signs, st.ada_n = torch.tensor(p), torch.tensor(signs), torch.tensor(n)
+    js.state = js.state.replace(ada_p=jnp.asarray(p, jnp.float32), ada_signs=jnp.asarray(signs, jnp.float32),
+                                ada_n=jnp.asarray(n, jnp.float32))
+    aux = {"sign_sum": 2.0, "n_pred": 4.0}
+    new, r_t = jax_make_train_phases(js.gen, js.disc, js.cfg)["ada"](js.state, {k: jnp.asarray(v) for k, v in aux.items()})
+    got = make_train_phases(cfg)["ada"](st, {k: torch.tensor(v) for k, v in aux.items()})
+    for a, b in ((got, r_t), (st.ada_p, new.ada_p), (st.ada_signs, new.ada_signs), (st.ada_n, new.ada_n)):
+        assert a.dtype == torch.float32 and a.ndim == 0
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    cfg_fixed, st_fixed = port_state(augment=True, augment_p=0.5)
+    assert float(make_train_phases(cfg_fixed)["ada"](st_fixed, {k: torch.tensor(v) for k, v in aux.items()})) == 0.0
+    assert float(st_fixed.ada_p) == 0.5
 
-    for kw in (dict(augment=True), dict(augment=False, bcr_weight=1.0), dict(augment=False, contrastive_weight=0.1)):
-        cfg = make_train_config(size=16, batch_size=4, channel_max=32, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_train_state(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_train_phases(cfg)
+
+@pytest.mark.parametrize("over", [
+    dict(augment=True),
+    pytest.param(dict(augment=True, augment_p=0.3, ada_warp_method="fft", bf16=True), marks=pytest.mark.slow),
+    pytest.param(dict(augment=True, augment_p=0.3, ada_fast_warp=True), marks=pytest.mark.slow),
+    dict(bcr_weight=1.0),
+    dict(contrastive_weight=0.1, contrastive_momentum=0.99, contrastive_queue=8),
+    pytest.param(dict(contrastive_weight=0.1, contrastive_loss_type="nt_xent", contrastive_bilinear=True),
+                 marks=pytest.mark.slow),
+])
+def test_ada_bcr_contrastive_configs_step_on_the_cpu(over):
+    """Each configuration builds and takes a step with R1 and the path
+    penalty on the CPU: finite metrics with the JAX names plus ADA's counts,
+    and the head (when there is one) moved by D's optimizer, which R1 steps
+    too. bCR and the contrastive regularizer turn augmentation on."""
+    cfg, st = port_state(d_reg_every=1, g_reg_every=1, **over)
+    assert cfg.augment
+    head0 = None if st.cl_head is None else st.cl_head.w1.detach().clone()
+    m = make_train_step(cfg)(st, _reals(1, 4), _draws(cfg))
+    assert all(np.isfinite(float(v)) for v in m.values())
+    assert float(m["R1 Penalty"]) > 0 and float(m["n_pred"]) == 4.0
+    assert float(m["Augment"]) == np.float32(cfg.augment_p)
+    if head0 is not None:
+        assert float((st.cl_head.w1.detach() - head0).abs().max()) > 0
+        assert st.d_optim.state[st.cl_head.w1]["step"] == 2  # the D phase and R1
+    if cfg.contrastive_queue:
+        assert int(st.cl_state.queue_filled) == 8 and int(st.cl_state.queue_ptr) == 0
+
+
+def test_unported_options_raise():
+    """What the step still refuses, now that ADA, bCR and the contrastive
+    regularizer run: ADA without its augmentation draws, an unknown warp
+    method, a MoCo queue that is not a multiple of 2 x batch, and the fft
+    warp on a non-square batch."""
+    cfg, st = port_state(augment=True)
+    with pytest.raises(ValueError, match="augmentation draws"):
+        make_train_step(cfg)(st, _reals(1, 4), _draws(cfg._replace(augment=False)))
+    cfg, st = port_state(augment=True, augment_p=0.5, ada_warp_method="bicubic")
+    with pytest.raises(ValueError, match="bicubic"):
+        make_train_phases(cfg)["d"](st, _reals(1, 4), _draws(cfg).d)
+    with pytest.raises(ValueError, match="multiple of 2\\*batch_size"):
+        port_state(contrastive_weight=0.1, contrastive_queue=12)
+    from maua_tpu_torch.train import apply_affine
+
+    with pytest.raises(ValueError, match="square"):
+        apply_affine(torch.zeros(2, 3, 16, 8), torch.eye(3).expand(2, 3, 3), method="fft")
+
