@@ -72,8 +72,26 @@ Phases, each printing JSON lines:
      (generate_latents) + 8 if truncated (mean_latent) + 17 per batch
      forward launches. Then the forward kernel against its plain version at
      the launch shapes of (b) and (c) not held before (`kernel_generate`).
+ 13. the inference tools, StyleGAN1, TF pickles and evaluation, card against
+     CPU at 256^2 in exact fp32 (`tools_card_vs_cpu`): LPIPS vgg and alex,
+     Inception in both variants, a full-width StyleGAN1, the projector's
+     first step (loss, latent and noise gradients) with LPIPS-VGG, and a TF
+     Gs pickle's conversion (equal state dicts) and images;
+ 14. the same at full width through their entry points (`tools_main_path`),
+     each with its kernel launches set to 0 just before, read just after and
+     checked against the structure: (a) sample() of 64 images at 1024^2;
+     (b) project() of a 1024^2 target, 100 steps, LPIPS-VGG on 256^2
+     resizes (17 forward + 17 gradient launches per step); (c) a 10 s
+     interpolation_video() with segmented noise; (d) generate_and_select()
+     of 24 images; (e) generate(stylegan1=True) over 4 s with the FFHQ
+     StyleGAN1, and load_tf_generator() of a full-width Gs pickle; (f) the
+     eval CLI's inception (512 images at 256^2), fid (1024 samples) and ppl
+     (256 pairs, LPIPS-VGG) in exact and fast; (g) the default train CLI
+     with --eval_every and SWD. Then both kernels against their plain
+     versions at the launch shapes of (a), (b) and (f) not held before
+     (`kernel_tools`).
 The line before the last lists both kernels (`kernels`, with their launches
-in the fp32 ADA run (a)); the last line is
+in the fp32 ADA run (a) of phase 10); the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before it; without
 a CUDA card, or without the package beside this file, the script fails at
 once.
@@ -1223,6 +1241,7 @@ def phase_train_ada_main_path(tmp: str) -> dict:
 # ---------------------------------------------------------------- phases 11, 12: generate()
 SR = 22050
 GEN_SIZE, TRACK_S = 1024, 180.0  # the FFHQ-1024 checkpoint of phase 4; the whole track of (a)
+TOOLS_SIZE = GEN_SIZE
 
 
 def synth_track(seconds: float, seed: int, bpm: float = 120.0) -> np.ndarray:
@@ -1527,17 +1546,12 @@ def phase_generate_main_path(tmp: str) -> dict:
     return results
 
 
-def phase_kernels_generate(shapes: dict) -> dict:
-    """The forward kernel at every launch shape of generate() runs (b) and (c)
-    that the render phase did not already hold: kernel vs plain, fp32."""
-    from collections import Counter
-
+def forward_shape_rows(counts, seen: set) -> list:
+    """The forward kernel against its plain version (fp32, exact) at each
+    launch shape of `counts` (a Counter of (shape, dtype, bias)) not in
+    `seen`, which it extends: error, times and bound per shape."""
     from maua_tpu_torch.ops.fused_act import fused_bias_act, fused_leaky_relu_plain
 
-    seen = {s for s, _ in render_batch_shapes(8)} | {(8, 512), (16384, 512)}
-    counts = Counter()
-    for fwd in shapes.values():
-        counts.update(fwd)
     rows = []
     for (shape, dtype, with_bias), n in sorted(counts.items()):
         if shape in seen:
@@ -1549,14 +1563,458 @@ def phase_kernels_generate(shapes: dict) -> dict:
         got, want = fused_bias_act(x, b), fused_leaky_relu_plain(x, b)
         torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
         moved = 2 * x.numel() * 4 + (0 if b is None else 4 * b.numel())
-        rows.append(dict(shape=list(shape), launches=n, max_abs_err=(got - want).abs().max().item(),
+        rows.append(dict(kernel="fused_bias_act", shape=list(shape), launches=n,
+                         max_abs_err=(got - want).abs().max().item(),
                          ms=fast_ms(lambda: fused_bias_act(x, b), x.numel()),
                          plain_ms=fast_ms(lambda: fused_leaky_relu_plain(x, b), x.numel()),
                          bound_ms=moved / HBM_BYTES_PER_S * 1e3))
         del x, b, got, want
         torch.cuda.empty_cache()
+    return rows
+
+
+def held_shapes() -> set:
+    """The forward kernel's shapes phase 2 holds: a render batch and the mapping."""
+    return {s for s, _ in render_batch_shapes(8)} | {(8, 512), (16384, 512)}
+
+
+def phase_kernels_generate(shapes: dict) -> dict:
+    """The forward kernel at every launch shape of generate() runs (b) and (c)
+    that the render phase did not already hold: kernel vs plain, fp32."""
+    from collections import Counter
+
+    counts = Counter()
+    for fwd in shapes.values():
+        counts.update(fwd)
+    rows = forward_shape_rows(counts, held_shapes())
     emit(phase="kernel_generate", kernel="fused_bias_act", dtype="float32", shapes=rows)
     return {"shapes": rows}
+
+
+# ---------------------------------------------------------------- phases 13, 14: inference tools, StyleGAN1, TF pickles, evaluation
+def vgg16_features_sd(seed: int) -> dict:
+    """A torchvision-layout vgg16 `features.*` state dict from a numpy seed
+    (He-normal convs, small biases): LPIPS's backbone."""
+    from maua_tpu_torch.eval import LPIPS
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for k, v in LPIPS("vgg").state_dict().items():
+        if k.startswith("features."):
+            shape = tuple(v.shape)
+            scale = math.sqrt(2.0 / np.prod(shape[1:])) if len(shape) > 1 else 0.05
+            sd[k] = torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32))
+    return sd
+
+
+def inception_sd(seed: int) -> dict:
+    """A torchvision-layout InceptionV3 state dict from a numpy seed:
+    He-normal convs and batch norms near identity, so the pool3 features stay
+    alive through the 94 convs (a random lecun-normal net collapses them)."""
+    from maua_tpu_torch.eval import InceptionV3
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for k, v in InceptionV3().state_dict().items():
+        shape = tuple(v.shape)
+        if k.endswith("conv.weight"):
+            a = math.sqrt(2.0 / np.prod(shape[1:])) * rng.standard_normal(shape)
+        elif k.endswith("bn.weight"):
+            a = 1.0 + 0.1 * rng.standard_normal(shape)
+        elif k.endswith(("bn.bias", "bn.running_mean")):
+            a = 0.05 * rng.standard_normal(shape)
+        elif k.endswith("bn.running_var"):
+            a = 1.0 + 0.1 * rng.random(shape)
+        else:
+            continue
+        sd[k] = torch.from_numpy(a.astype(np.float32))
+    return sd
+
+
+def fabricate_sg1_checkpoint(path: str, size: int, seed: int) -> None:
+    """A lernapparat G_style state dict of the FFHQ StyleGAN1 configuration
+    (nf(stage) = min(8192 / 2^stage, 512)) from a numpy seed: mapping weights
+    N(0, 100^2) (lr multiplier 0.01), N(0, 1) conv and style weights, small
+    biases and noise weights."""
+    from maua_tpu_torch.models.stylegan1 import StyleGAN1, nf
+
+    log = int(math.log2(size))
+    template = StyleGAN1(size, [nf(r - 1) for r in range(2, log + 1)])
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for name, t in template.state_dict().items():
+        if name.startswith("noises."):
+            continue
+        v = rng.standard_normal(tuple(t.shape), dtype=np.float32)
+        if name.startswith("g_mapping.") and name.endswith(".weight"):
+            v = 100.0 * v
+        elif name.endswith(".bias") or name.endswith("noise.weight"):
+            v = 0.1 * v
+        sd[name] = torch.from_numpy(v)
+    torch.save(sd, path)
+
+
+def fabricate_tf_pickle(path: str, size: int, seed: int) -> None:
+    """A TF StyleGAN2 `Gs` pickle of the FFHQ config (style_dim 512, 8
+    mapping layers, channel multiplier 2) from a numpy seed, written through
+    stand-in dnnlib modules that are removed again, so that the port reads it
+    without dnnlib."""
+    import pickle
+    import types
+
+    from maua_tpu_torch.models import channel_map
+
+    rng = np.random.default_rng(seed)
+    ch = channel_map(CHANNEL_MULTIPLIER)
+    variables = []
+
+    def put(name, shape, scale=1.0):
+        variables.append((name, (scale * rng.standard_normal(shape)).astype(np.float32)))
+
+    for i in range(N_MLP):
+        put(f"G_mapping/Dense{i}/weight", (STYLE_DIM, STYLE_DIM))
+        put(f"G_mapping/Dense{i}/bias", (STYLE_DIM,), 0.1)
+    put("G_synthesis/4x4/Const/const", (1, ch[4], 4, 4))
+
+    def conv(prefix, cin, cout, k=3, rgb=False):
+        put(f"{prefix}/weight", (k, k, cin, cout))
+        put(f"{prefix}/mod_weight", (STYLE_DIM, cin))
+        put(f"{prefix}/mod_bias", (cin,), 0.1)
+        put(f"{prefix}/bias", (cout,), 0.1)
+        if not rgb:
+            variables.append((f"{prefix}/noise_strength", np.float32(0.1 * rng.standard_normal())))
+
+    conv("G_synthesis/4x4/Conv", ch[4], ch[4])
+    conv("G_synthesis/4x4/ToRGB", ch[4], 3, k=1, rgb=True)
+    for i in range(int(math.log2(size)) - 2):
+        r = 4 * 2 ** (i + 1)
+        conv(f"G_synthesis/{r}x{r}/Conv0_up", ch[r // 2], ch[r])
+        conv(f"G_synthesis/{r}x{r}/Conv1", ch[r], ch[r])
+        conv(f"G_synthesis/{r}x{r}/ToRGB", ch[r], 3, k=1, rgb=True)
+    for i in range((int(math.log2(size)) - 2) * 2 + 1):
+        put(f"G_synthesis/noise{i}", (1, 1, 2 ** ((i + 5) // 2), 2 ** ((i + 5) // 2)))
+
+    names = ("dnnlib", "dnnlib.tflib", "dnnlib.tflib.network")
+    mods = {n: types.ModuleType(n) for n in names}
+
+    class Network:
+        def __init__(self, state):
+            self._state = state
+
+        def __getstate__(self):
+            return self._state
+
+    Network.__module__, Network.__qualname__ = "dnnlib.tflib.network", "Network"
+    mods["dnnlib.tflib.network"].Network = Network
+    sys.modules.update(mods)
+    try:
+        gs = Network({"name": "Gs", "static_kwargs": {"resolution": size}, "variables": variables, "components": {}})
+        with open(path, "wb") as f:
+            pickle.dump((None, None, gs), f)
+    finally:
+        for n in names:
+            sys.modules.pop(n, None)
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest difference over the largest magnitude."""
+    return ((a.float().cpu() - b.float().cpu()).abs().max() / b.float().cpu().abs().max().clamp_min(1e-30)).item()
+
+
+def phase_tools_card_vs_cpu(tmp: str) -> None:
+    """The new modules, card against CPU in exact fp32 (TF32 off) at 256^2:
+    LPIPS vgg and alex distances, Inception pool3 features in both variants,
+    the StyleGAN1 synthesis at full width, the projector's first step (its
+    loss, and the gradients of the W+ latent and of the noise maps as one
+    vector) through the 256^2 generator of phase 3 with LPIPS-VGG, and the
+    TF-pickle conversion (equal state dicts, images within 1e-3)."""
+    from maua_tpu_torch.eval import LPIPS, InceptionV3
+    from maua_tpu_torch.io import load_generator, load_tf_generator
+    from maua_tpu_torch.models import load_stylegan1, noise_shapes
+    from maua_tpu_torch.models.blocks import tf32
+    from maua_tpu_torch.pipeline.projector import projector_loss
+
+    out = {}
+    rng = np.random.default_rng(31)
+    x = torch.from_numpy(np.tanh(rng.standard_normal((2, 3, 256, 256))).astype(np.float32))
+    y = torch.from_numpy(np.tanh(x.numpy() + 0.3 * rng.standard_normal((2, 3, 256, 256))).astype(np.float32))
+    vgg_sd = vgg16_features_sd(32)
+    with tf32(conv=False, matmul=False), torch.no_grad():
+        for net in ("vgg", "alex"):
+            sd = vgg_sd if net == "vgg" else None  # alex: its seeded initial backbone on both devices
+            lp = LPIPS(net).load(sd)
+            a, b = lp.cuda()(x.cuda(), y.cuda()), lp.cpu()(x, y)
+            out[f"lpips_{net}"] = rel_err(a, b)
+            require(bool((b > 0).all()) and out[f"lpips_{net}"] <= 1e-4, f"LPIPS {net}: card vs CPU {out[f'lpips_{net}']}")
+        inc_sd = inception_sd(33)
+        for fid_variant in (False, True):
+            net = InceptionV3(fid_variant=fid_variant).load(inc_sd).eval()
+            a = net.cuda()(InceptionV3.preprocess(x.cuda()))
+            b = net.cpu()(InceptionV3.preprocess(x))
+            key = "inception_fid" if fid_variant else "inception"
+            out[key] = rel_err(a, b)
+            require(b.abs().max() > 1e-2 and out[key] <= 1e-4, f"{key}: card vs CPU {out[key]} (features max {b.abs().max()})")
+
+        sg1_path = os.path.join(tmp, "sg1_256.pt")
+        fabricate_sg1_checkpoint(sg1_path, 256, seed=34)
+        z = torch.from_numpy(rng.standard_normal((2, STYLE_DIM)).astype(np.float32))
+        card, cpu = load_stylegan1(sg1_path, device="cuda"), load_stylegan1(sg1_path, device="cpu")
+        a, b = card(z.cuda(), input_is_latent=False)[0], cpu(z, input_is_latent=False)[0]
+        out["stylegan1_256_max_abs"] = (a.cpu() - b).abs().max().item()
+        require(bool(torch.isfinite(a).all()) and out["stylegan1_256_max_abs"] <= 1e-3,
+                f"StyleGAN1 256^2: card vs CPU max abs {out['stylegan1_256_max_abs']}")
+        del card, cpu
+
+        pkl = os.path.join(tmp, "gs256.pkl")
+        fabricate_tf_pickle(pkl, 256, seed=35)
+        card, cpu = load_tf_generator(pkl, device="cuda"), load_tf_generator(pkl, device="cpu")
+        sd_a, sd_b = card.state_dict(), cpu.state_dict()
+        require(set(sd_a) == set(sd_b) and all(torch.equal(sd_a[k].cpu(), sd_b[k]) for k in sd_b), "TF pickle: state dicts differ")
+        a = card(z.cuda(), randomize_noise=False)[0]
+        b = cpu(z, randomize_noise=False)[0]
+        out["tf_pickle_256_max_abs"] = (a.cpu() - b).abs().max().item()
+        require(out["tf_pickle_256_max_abs"] <= 1e-3, f"TF pickle 256^2: card vs CPU {out['tf_pickle_256_max_abs']}")
+        del card, cpu
+
+    # the projector's first step: loss and gradients, from the same latent,
+    # noise maps and latent-noise draw on both devices
+    g_path = os.path.join(tmp, "g256.pt")
+    grads = {}
+    lp_sd = vgg_sd
+    target = torch.from_numpy(np.tanh(rng.standard_normal((1, 3, 256, 256))).astype(np.float32))
+    latent0 = torch.from_numpy(0.5 * rng.standard_normal((1, 14, STYLE_DIM)).astype(np.float32))
+    noises0 = [torch.from_numpy(rng.standard_normal((1,) + s[1:]).astype(np.float32)) for s in noise_shapes(256)]
+    draw = torch.from_numpy(rng.standard_normal((1, 14, STYLE_DIM)).astype(np.float32))
+    for dev in ("cuda", "cpu"):
+        gen = load_generator(g_path, device=dev)
+        lp = LPIPS("vgg").load(lp_sd).requires_grad_(False).eval().to(dev)
+        latent = latent0.to(dev).requires_grad_(True)
+        noises = [n.to(dev).requires_grad_(True) for n in noises0]
+        with tf32(conv=False, matmul=False):
+            loss, (d, n_reg) = projector_loss(gen, target.to(dev), latent, noises, draw.to(dev), 0.05, lp)
+            g = torch.autograd.grad(loss, [latent, *noises])
+        grads[dev] = (loss.detach().cpu(), d.detach().cpu(), g[0].cpu(), torch.cat([t.flatten() for t in g[1:]]).cpu())
+        del gen, lp
+    (la, da, gla, gna), (lb, db, glb, gnb) = grads["cuda"], grads["cpu"]
+    out["projector_loss_rel"] = rel_err(la, lb)
+    out["projector_latent_grad_rel"] = rel_err(gla, glb)
+    out["projector_noise_grad_rel"] = rel_err(gna, gnb)
+    require(out["projector_loss_rel"] <= 1e-4, f"projector loss card vs CPU {out['projector_loss_rel']}")
+    require(out["projector_latent_grad_rel"] <= 1e-3 and out["projector_noise_grad_rel"] <= 1e-3,
+            f"projector gradients card vs CPU {out}")
+    emit(phase="tools_card_vs_cpu", size=256, precision="exact fp32", errors=out,
+         tolerance="LPIPS, Inception 1e-4 of the largest; images 1e-3 max abs; projector loss 1e-4, gradients 1e-3 "
+                   "of the largest (noise maps as one vector)")
+
+
+def counted(fn, label: str, fwd: int, grad: int = 0):
+    """(result, seconds, forward Counter, gradient Counter) of fn() on the
+    card, the launch counters set to 0 just before and read just after, and
+    required to equal the counts derived from the structure."""
+    from maua_tpu_torch.ops import fused_act
+
+    torch.cuda.synchronize()
+    fused_act.launches = fused_act.grad_launches = 0
+    box = {}
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        shapes = record_launch_shapes(lambda: box.setdefault("out", fn()))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = (fused_act.launches, fused_act.grad_launches)
+    require(got == (fwd, grad), f"{label}: launches {got}, derived from the structure {(fwd, grad)}")
+    return box["out"], seconds, shapes, buf.getvalue()
+
+
+def phase_tools_main_path(tmp: str, ada_shards: str) -> dict:
+    """The inference tools, StyleGAN1, TF pickles and evaluation at full
+    width (FFHQ-1024 config of phase 4, random weights), through their
+    public entry points on the card, each with its forward (and gradient)
+    kernel launches derived from the structure: 25 per forward from z (8
+    mapping layers + 17 StyledConvs), 17 per forward from W+, 8 per mean
+    latent. (a) sample 64 images, truncation 0.7; (b) project a 1024^2
+    target for 100 steps with LPIPS-VGG on 256^2 resizes; (c) a 10 s
+    interpolation video at 30 fps with segmented noise; (d)
+    generate_and_select 24 images; (e) generate(stylegan1=True) over a 4 s
+    window of the phase-12 track with the FFHQ StyleGAN1, and
+    load_tf_generator of a full-width Gs pickle; (f) the eval CLI's
+    inception (512 prepared 256^2 images), fid (1024 samples) and ppl (256
+    pairs, LPIPS-VGG), in exact and fast; (g) the default train CLI with
+    --eval_every and SWD."""
+    from maua_tpu_torch.data.synthetic import write_synth_shards
+    from maua_tpu_torch.eval import cli as eval_cli
+    from maua_tpu_torch.eval import perceptual_lpips
+    from maua_tpu_torch.io import load_generator, load_tf_generator
+    from maua_tpu_torch.ops.resize import resize_bilinear
+    from maua_tpu_torch.pipeline import generate
+    from maua_tpu_torch.pipeline.interpolate import interpolation_video
+    from maua_tpu_torch.pipeline.projector import project
+    from maua_tpu_torch.pipeline.sample import sample
+    from maua_tpu_torch.pipeline.select_latents import generate_and_select
+    from maua_tpu_torch.train.cli import build_parser, train_loop
+
+    ckpt = os.path.join(tmp, "g1024.pt")
+    per_w = 2 * (int(math.log2(TOOLS_SIZE)) - 2) + 1  # StyledConvs of one forward from W+
+    per_z = N_MLP + per_w
+    CountingWriter = install_counting_writer()
+    results, shapes = {}, {}
+
+    # (a) sample
+    pics, batch = 64, 8
+    out_dir = os.path.join(tmp, "sample")
+    _, s, shapes["a"], _ = counted(lambda: sample(ckpt, pics=pics, sample_batch=batch, truncation=0.7, out_dir=out_dir,
+                                                  seed=1, device="cuda"), "(a) sample", N_MLP + (pics // batch) * per_z)
+    from PIL import Image
+
+    pngs = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
+    im = np.asarray(Image.open(os.path.join(out_dir, "000063.png")))
+    require(len(pngs) == pics + 1 and im.shape == (TOOLS_SIZE, TOOLS_SIZE, 3) and im.std() > 0, f"(a) {len(pngs)} PNGs")
+    results["a_sample"] = dict(images=pics, batch=batch, seconds=s, images_per_s=pics / s)
+    emit(phase="tools_main_path", run="a_sample", **results["a_sample"])
+
+    # (b) project
+    gen = load_generator(ckpt, device="cuda")
+    lp = perceptual_lpips(vgg16_features_sd(32), net="vgg", device="cuda")
+    with torch.no_grad():
+        target = gen(torch.from_numpy(np.random.default_rng(36).standard_normal((1, STYLE_DIM)).astype(np.float32)).cuda(),
+                     randomize_noise=False)[0]
+
+    def lpips_256(img, t):
+        return lp(resize_bilinear(img, (256, 256)), resize_bilinear(t, (256, 256)))
+
+    steps = 100
+    (latent, noises, hist), s, shapes["b"], _ = counted(
+        lambda: project(gen, target, n_steps=steps, distance_fn=lpips_256, log_every=10), "(b) project",
+        N_MLP + per_w * steps, per_w * steps)
+    require(latent.shape == (1, gen.n_latent, STYLE_DIM) and len(noises) == gen.num_layers, "(b) shapes")
+    require(all(np.isfinite(h["loss"]) for h in hist) and hist[-1]["dist"] < hist[0]["dist"],
+            f"(b) the distance did not fall: {[h['dist'] for h in hist]}")
+    results["b_project"] = dict(steps=steps, seconds=s, s_per_step=s / steps, dist=[h["dist"] for h in hist],
+                                launches_per_step=(per_w, per_w))
+    emit(phase="tools_main_path", run="b_project", size=TOOLS_SIZE, distance="lpips-vgg at 256^2", **results["b_project"])
+    del gen, lp, latent, noises
+    torch.cuda.empty_cache()
+
+    # (c) interpolation video, segmented noise
+    n_frames, batch = 300, 8
+    CountingWriter.written = []
+    out, s, _, _ = counted(lambda: interpolation_video(ckpt, n_latents=8, duration=10.0, fps=30, batch=batch,
+                                                        noise_mode="segmented", output_file=os.path.join(tmp, "interp.mp4"),
+                                                        device="cuda"),
+                           "(c) interpolation_video", N_MLP + -(-n_frames // batch) * per_w)
+    require(len(CountingWriter.written) == n_frames and min(CountingWriter.written) > 0, f"(c) {len(CountingWriter.written)} frames")
+    results["c_interpolate"] = dict(frames=n_frames, seconds=s, frames_per_s=n_frames / s, writer=CountingWriter.backend_used)
+    emit(phase="tools_main_path", run="c_interpolate", size=TOOLS_SIZE, noise="segmented", **results["c_interpolate"])
+
+    # (d) generate_and_select
+    sel_dir = os.path.join(tmp, "selection")
+    outs, s, _, _ = counted(lambda: generate_and_select(ckpt, n=24, out_dir=sel_dir, picks={"intro": [0, 3], "drop": [5]},
+                                                        batch=8, device="cuda"),
+                            "(d) generate_and_select", 2 * N_MLP + 3 * per_w)
+    require(np.load(outs["all"]).shape == (24, 18, STYLE_DIM) and np.load(outs["intro"]).shape == (2, 18, STYLE_DIM),
+            "(d) latent files")
+    results["d_select"] = dict(images=24, seconds=s, images_per_s=24 / s)
+    emit(phase="tools_main_path", run="d_select", **results["d_select"])
+
+    # (e) StyleGAN1 through generate(), and a full-width TF pickle
+    sg1 = os.path.join(tmp, "sg1_1024.pt")
+    fabricate_sg1_checkpoint(sg1, TOOLS_SIZE, seed=37)
+    n_frames = 120
+    CountingWriter.written = []
+    _, s, _, _ = counted(lambda: generate(sg1, os.path.join(tmp, "track.wav"), stylegan1=True, G_res=TOOLS_SIZE,
+                                          out_size=TOOLS_SIZE, offset=60.0, duration=4.0, fps=30, batch=8,
+                                          output_file=os.path.join(tmp, "sg1.mp4"), device="cuda"),
+                         "(e) generate(stylegan1=True)", 0)  # StyleGAN1's leaky-ReLU is plain
+    require(len(CountingWriter.written) == n_frames and min(CountingWriter.written) > 0, f"(e) {len(CountingWriter.written)} frames")
+    results["e_stylegan1"] = dict(frames=n_frames, seconds=s, frames_per_s=n_frames / s)
+    pkl = os.path.join(tmp, "gs1024.pkl")
+    t0 = time.perf_counter()
+    fabricate_tf_pickle(pkl, TOOLS_SIZE, seed=38)
+    write_s = time.perf_counter() - t0
+    tf_gen, load_s, _, _ = counted(lambda: load_tf_generator(pkl, device="cuda"), "(e) load_tf_generator", 0)
+    with torch.no_grad():
+        img, _ = counted(lambda: tf_gen(torch.zeros(2, STYLE_DIM, device="cuda").normal_(), randomize_noise=False),
+                         "(e) TF-pickle generator forward", per_z)[0]
+    require(img.shape == (2, 3, TOOLS_SIZE, TOOLS_SIZE) and bool(torch.isfinite(img).all()), "(e) TF-pickle generator image")
+    results["e_tf_pickle"] = dict(bytes=os.path.getsize(pkl), write_s=write_s, load_tf_generator_s=load_s)
+    emit(phase="tools_main_path", run="e_stylegan1", size=TOOLS_SIZE, window_s=4.0, **results["e_stylegan1"],
+         tf_pickle=results["e_tf_pickle"])
+    del tf_gen, img
+    torch.cuda.empty_cache()
+
+    # (f) the eval CLI, exact and fast
+    eval_shards = os.path.join(tmp, "eval_shards")
+    write_synth_shards(eval_shards, 256, 512, seed=39, shard_size=256)
+    inc_w, lp_w = os.path.join(tmp, "inception_v3.pth"), os.path.join(tmp, "vgg16.pth")
+    torch.save(inception_sd(33), inc_w)
+    torch.save(vgg16_features_sd(32), lp_w)
+    fid_n, fid_b, ppl_n, ppl_b = 1024, 32, 256, 16
+
+    def cli(argv, label, fwd):
+        rc, s, sh, stdout = counted(lambda: eval_cli.main(argv), label, fwd)
+        require(rc == 0, f"{label}: exit {rc}")
+        return json.loads(stdout.strip().splitlines()[-1]), s, sh
+
+    for prec in ("exact", "fast"):
+        common = ["--device", "cuda", "--precision", prec]
+        stats = os.path.join(tmp, f"stats_{prec}.pkl")
+        inc, s_inc, _ = cli(["inception", "--path", eval_shards, "--size", "256", "--batch", "64", "--out", stats,
+                             "--inception_weights", inc_w, *common], f"(f) inception {prec}", 0)
+        fid, s_fid, sh_fid = cli(["fid", "--ckpt", ckpt, "--stats", stats, "--n_sample", str(fid_n), "--batch", str(fid_b),
+                                  "--inception_weights", inc_w, *common], f"(f) fid {prec}", N_MLP + (fid_n // fid_b) * per_z)
+        ppl, s_ppl, sh_ppl = cli(["ppl", "--ckpt", ckpt, "--n_sample", str(ppl_n), "--batch", str(ppl_b),
+                                  "--lpips_weights", lp_w, *common], f"(f) ppl {prec}", (ppl_n // ppl_b) * per_z)
+        require(inc["pretrained"] and inc["n_features"] == 2048, f"(f) inception {inc}")
+        require(np.isfinite(fid["fid"]) and np.isfinite(ppl["ppl"]) and ppl["distance"] == "lpips-vgg", f"(f) {fid} {ppl}")
+        if prec == "exact":
+            shapes["f_fid"], shapes["f_ppl"] = sh_fid, sh_ppl
+        results[f"f_{prec}"] = dict(inception_images_per_s=512 / s_inc, inception_s=s_inc, fid=fid["fid"],
+                                    fid_samples_per_s=fid_n / s_fid, fid_s=s_fid, ppl=ppl["ppl"],
+                                    ppl_pairs_per_s=ppl_n / s_ppl, ppl_s=s_ppl)
+        emit(phase="tools_main_path", run="f_eval", precision=prec, **results[f"f_{prec}"])
+    results["f_fid_fast_minus_exact"] = results["f_fast"]["fid"] - results["f_exact"]["fid"]
+    results["f_ppl_fast_over_exact"] = results["f_fast"]["ppl"] / results["f_exact"]["ppl"]
+    emit(phase="tools_main_path", run="f_eval_precision", fid_fast_minus_exact=results["f_fid_fast_minus_exact"],
+         ppl_fast_over_exact=results["f_ppl_fast_over_exact"])
+
+    # (g) the default train CLI (ADA) with --eval_every and SWD, on phase 10's shards
+    run = os.path.join(tmp, "run_eval")
+    argv = ["--path", ada_shards, "--size", str(TRAIN_SIZE), "--batch_size", str(TRAIN_BATCH), "--iter", "3",
+            "--log_every", "1", "--img_every", "0", "--checkpoint_every", "0", "--num_workers", "4", "--device", "cuda",
+            "--run_dir", run, "--eval_every", "2", "--eval_metric", "swd", "--swd_n_sample", "48", "--fid_batch", "12"]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        train_loop(build_parser().parse_args(argv))
+    wall = time.perf_counter() - t0
+    lines = [json.loads(x) for x in open(os.path.join(run, "metrics.jsonl"))]
+    evals = [x for x in lines if "SWD" in x]
+    per_g = N_MLP + 2 * (int(math.log2(TRAIN_SIZE)) - 2) + 1
+    require([x["step"] for x in evals] == [2] and np.isfinite(evals[0]["SWD"]), f"(g) eval lines {evals}")
+    require(evals[0]["fused_bias_act launches"] == N_MLP + 4 * per_g,
+            f"(g) eval launches {evals[0]['fused_bias_act launches']}, derived {N_MLP + 4 * per_g}")
+    results["g_train_eval"] = dict(steps=3, wall_s=wall, swd=evals[0]["SWD"], eval_s=evals[0]["eval_seconds"],
+                                   eval_launches=evals[0]["fused_bias_act launches"])
+    emit(phase="tools_main_path", run="g_train_eval", size=TRAIN_SIZE, batch=TRAIN_BATCH, metric="swd", reals=48,
+         **results["g_train_eval"])
+    results["shapes"] = shapes
+    return results
+
+
+def phase_kernels_tools(shapes: dict) -> None:
+    """Both kernels against their plain versions at every launch shape of the
+    tools' paths not held before (fp32): the forward kernel for sample, the
+    projector, FID and PPL, the gradient kernel for the projector."""
+    from collections import Counter
+
+    fwd, grad = Counter(), Counter()
+    for f, g in shapes.values():
+        fwd.update(f)
+        grad.update(g)
+    rows = forward_shape_rows(fwd, held_shapes())
+    for (shape, dtype), n in sorted(grad.items()):
+        rows.append(dict(kernel="fused_bias_act_grad", shape=list(shape), launches=n, **grad_case(shape, torch.float32)))
+        torch.cuda.empty_cache()
+    emit(phase="kernel_tools", dtype="float32", shapes=rows)
 
 
 def main() -> int:
@@ -1594,11 +2052,14 @@ def main() -> int:
         with contextlib.chdir(tmp):  # load_audio's and generate()'s workspace/
             phase_generate_card_vs_cpu(tmp)
             gen = phase_generate_main_path(tmp)
+            phase_tools_card_vs_cpu(tmp)
+            tools = phase_tools_main_path(tmp, os.path.join(tmp, "ada_shards"))
     # the ADA step's launch shapes are the plain step's (the fused D pass,
     # the same G and D): the kernels are timed once, at those shapes
     require(ada["shapes"] == train["shapes"]["fp32_exact"], "an fp32 ADA step launches the kernels at other shapes")
     per_step = phase_kernels_train(train["shapes"])
     phase_kernels_generate(gen["shapes"])
+    phase_kernels_tools(tools["shapes"])
     for label, dt in (("fp32_exact", "float32"), ("bf16", "bfloat16")):
         prof = ada["profile"][label]
         warp_ms = aug_times[f"fft_{dt}"]["forward_ms"] + aug_times[f"fft_b12_{dt}"]["forward_backward_ms"]

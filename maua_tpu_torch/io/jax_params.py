@@ -13,8 +13,16 @@ package's `discriminator_variables_from_torch`: `from_rgb` -> `convs.0`,
 behind the downsampling blur, whose FIR kernel buffer is added).
 `projection_head_state_dict_from_jax(head)` maps the contrastive projection
 head's dict (`w1`, `b1`, `w2`, `b2`, optional `bw`) onto the port's
-`ProjectionHead`, whose parameters keep those names and layouts. Only numpy
-is needed on the JAX side: any array type that `np.asarray` takes will do.
+`ProjectionHead`, whose parameters keep those names and layouts.
+`stylegan1_state_dict_from_jax(params, buffers)` maps the JAX StyleGAN1's
+pytree (blocks by index, `epi1.style`, `noise_weight`) onto the lernapparat
+G_style keys of `StyleGAN1`, noise buffers included;
+`inception_state_dict_from_jax(params)` and `lpips_state_dict_from_jax(params,
+net)` map the JAX feature networks onto torchvision's keys (the JAX
+InceptionV3's `bn_scale` / `bn_mean` -> `bn.weight` / `bn.running_mean`;
+LPIPS's `conv{i}_weight` -> `features.<torchvision index>.weight`, `lin{i}` ->
+`lin{i}.model.1.weight`). Only numpy is needed on the JAX side: any array
+type that `np.asarray` takes will do.
 """
 
 from __future__ import annotations
@@ -27,7 +35,14 @@ import torch
 from ..models.blocks import DEFAULT_BLUR_KERNEL
 from ..ops.upfirdn2d import setup_filter
 
-__all__ = ["discriminator_state_dict_from_jax", "generator_state_dict_from_jax", "projection_head_state_dict_from_jax"]
+__all__ = [
+    "discriminator_state_dict_from_jax",
+    "generator_state_dict_from_jax",
+    "inception_state_dict_from_jax",
+    "lpips_state_dict_from_jax",
+    "projection_head_state_dict_from_jax",
+    "stylegan1_state_dict_from_jax",
+]
 
 
 def _t(a) -> torch.Tensor:
@@ -120,3 +135,70 @@ def discriminator_state_dict_from_jax(
 def projection_head_state_dict_from_jax(head: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """JAX projection-head dict -> state dict for `ProjectionHead.load_state_dict`."""
     return {k: _t(head[k]) for k in ("w1", "b1", "w2", "b2", "bw") if k in head}
+
+
+def stylegan1_state_dict_from_jax(params: Mapping[str, Any], buffers: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX StyleGAN1 variables -> state dict for `StyleGAN1.from_state_dict`
+    (the constant as JAX holds it, widescreen or not; the noise buffers)."""
+    sd: dict[str, torch.Tensor] = {}
+
+    def put_lin(prefix, tree):
+        sd[f"{prefix}.weight"] = _t(tree["weight"])
+        sd[f"{prefix}.bias"] = _t(tree["bias"])
+
+    def put_epi(prefix, tree):
+        sd[f"{prefix}.top_epi.noise.weight"] = _t(tree["noise_weight"])
+        put_lin(f"{prefix}.style_mod.lin", tree["style"])
+
+    for i in range(8):
+        put_lin(f"g_mapping.dense{i}", params["g_mapping"][f"dense{i}"])
+    blocks = params["g_synthesis"]["blocks"]
+    for i in sorted(blocks, key=int):
+        b, res = blocks[i], 4 * 2 ** int(i)
+        prefix = f"g_synthesis.blocks.{res}x{res}"
+        convs = ("conv",) if int(i) == 0 else ("conv0_up", "conv1")
+        if int(i) == 0:
+            sd[f"{prefix}.const"] = _t(b["const"])
+            sd[f"{prefix}.bias"] = _t(b["bias"])
+        for name in convs:
+            put_lin(f"{prefix}.{name}", b[name])
+        put_epi(f"{prefix}.epi1", b["epi1"])
+        put_epi(f"{prefix}.epi2", b["epi2"])
+    put_lin("g_synthesis.torgb", params["g_synthesis"]["torgb"])
+    for name, buf in buffers.items():
+        sd[f"noises.{name}"] = _t(buf)
+    return sd
+
+
+def inception_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX InceptionV3 params -> torchvision-keyed state dict for
+    `InceptionV3.load`."""
+    sd: dict[str, torch.Tensor] = {}
+
+    def walk(prefix, tree):
+        if "bn_scale" in tree:
+            sd[f"{prefix}.conv.weight"] = _t(tree["weight"])
+            for src, dst in (("bn_scale", "weight"), ("bn_bias", "bias"), ("bn_mean", "running_mean"), ("bn_var", "running_var")):
+                sd[f"{prefix}.bn.{dst}"] = _t(tree[src])
+            return
+        for name, sub in tree.items():
+            walk(f"{prefix}.{name}" if prefix else name, sub)
+
+    walk("", params)
+    return sd
+
+
+def lpips_state_dict_from_jax(params: Mapping[str, Any], net: str = "vgg") -> dict[str, torch.Tensor]:
+    """JAX LPIPS params -> state dict for `LPIPS.load` (torchvision backbone
+    keys and richzhang heads)."""
+    conv_idx = [0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28] if net == "vgg" else [0, 3, 6, 8, 10]
+    sd: dict[str, torch.Tensor] = {}
+    feats = params["features"]
+    for i, idx in enumerate(conv_idx):
+        sd[f"features.{idx}.weight"] = _t(feats[f"conv{i}_weight"])
+        sd[f"features.{idx}.bias"] = _t(feats[f"conv{i}_bias"])
+    i = 0
+    while f"lin{i}" in params:
+        sd[f"lin{i}.model.1.weight"] = _t(params[f"lin{i}"]).reshape(1, -1, 1, 1)
+        i += 1
+    return sd

@@ -1,4 +1,4 @@
-"""StyleGAN2 generator, discriminator and their blocks."""
+"""StyleGAN2 generator, discriminator and their blocks; the StyleGAN1 generator."""
 
 from .blocks import (
     ConstantInput,
@@ -17,6 +17,7 @@ from .blocks import (
     minibatch_stddev,
     pixel_norm,
 )
+from .stylegan1 import StyleGAN1, load_stylegan1
 from .stylegan2 import Discriminator, Generator, MappingNetwork, channel_map, noise_shapes
 
 __all__ = [
@@ -33,10 +34,12 @@ __all__ = [
     "ModulatedConv2d",
     "NoiseInjection",
     "ResBlock",
+    "StyleGAN1",
     "StyledConv",
     "ToRGB",
     "apply_bends",
     "channel_map",
+    "load_stylegan1",
     "minibatch_stddev",
     "noise_shapes",
     "pixel_norm",

@@ -4,7 +4,9 @@ maua_tpu/pipeline/generate.py).
 Load audio -> run the plugin functions (initialize / get_latents / get_noise
 / get_bends / get_rewrites / get_truncation) -> assemble timelines -> load the
 generator from a rosinality checkpoint -> `render()` to video. `args` is the
-mutable namespace threaded through the plugin functions.
+mutable namespace threaded through the plugin functions. With `stylegan1`
+the checkpoint is a G_style state dict: `latent_count` z from `Draws(seed)`
+go through its mapping network and `StyleGAN1` renders.
 
 Everything runs on `device` (default `cuda`; RuntimeError without a card):
 the audio goes there as an fp32 tensor, the audio package's default device
@@ -26,8 +28,10 @@ import torch
 
 from .. import audio as ar
 from ..device import DeviceLike, resolve_device
+from ..draws import Draws
 from ..io.torch_ckpt import infer_generator_config, load_generator, load_torch_checkpoint
 from ..models.blocks import tf32
+from ..models.stylegan1 import load_stylegan1
 from ..reactive import generate_latents, load_latents, save_latents
 from ..render import render
 
@@ -54,9 +58,11 @@ def load_generator_for_render(
     stylegan1: bool = False,
     device: DeviceLike = None,
 ):
-    """The render Generator from a checkpoint, on `device`."""
+    """The render generator from a checkpoint, on `device`: the StyleGAN2
+    `Generator`, or with `stylegan1` the `StyleGAN1` of a G_style checkpoint
+    (its constant widened for out_size 1920)."""
     if stylegan1:
-        raise NotImplementedError("StyleGAN1 checkpoints are not ported yet")
+        return load_stylegan1(ckpt, output_size=out_size, device=device)
     return load_generator(
         ckpt,
         output_size=out_size if out_size != G_res else None,
@@ -105,8 +111,6 @@ def generate(
     device: DeviceLike = None,
 ) -> str:
     """Render an audio-reactive video; returns the output file path."""
-    if stylegan1:
-        raise NotImplementedError("StyleGAN1 checkpoints are not ported yet")
     if mesh is not None:
         raise NotImplementedError("multi-GPU rendering (mesh=) is not ported yet")
     if args is None:
@@ -123,18 +127,20 @@ def generate(
     n_frames = int(round(duration * fps))
     args.duration, args.n_frames = duration, n_frames
 
-    # Reconcile G_res with the checkpoint's resolution: a stale --G_res would
-    # build the noise-scale geometry for the wrong pyramid. A square out_size
-    # that tracked the stale G_res follows it; widescreen targets stay.
-    sd = load_torch_checkpoint(ckpt)
-    true_size = infer_generator_config(sd.get("g_ema", sd))["size"]
-    del sd
-    if true_size != G_res:
-        print(f"G_res={G_res} does not match checkpoint resolution {true_size}; using {true_size}")
-        if out_size == G_res:
-            print(f"out_size={out_size} tracked the stale G_res; using {true_size}")
-            out_size = args.out_size = true_size
-        G_res = args.G_res = true_size
+    # Reconcile G_res with a StyleGAN2 checkpoint's resolution: a stale
+    # --G_res would build the noise-scale geometry for the wrong pyramid. A
+    # square out_size that tracked the stale G_res follows it; widescreen
+    # targets stay. A StyleGAN1 checkpoint is taken at G_res, as in JAX.
+    if not stylegan1:
+        sd = load_torch_checkpoint(ckpt)
+        true_size = infer_generator_config(sd.get("g_ema", sd))["size"]
+        del sd
+        if true_size != G_res:
+            print(f"G_res={G_res} does not match checkpoint resolution {true_size}; using {true_size}")
+            if out_size == G_res:
+                print(f"out_size={out_size} tracked the stale G_res; using {true_size}")
+                out_size = args.out_size = true_size
+            G_res = args.G_res = true_size
 
     # with no plugin function at all, the default initialize computes the
     # lo/hi onset envelopes the default get_latents/get_noise read
@@ -151,6 +157,12 @@ def generate(
             get_latents = defaults.get_latents
         if latent_file is not None:
             latent_selection = load_latents(latent_file)
+        elif stylegan1:
+            # z from Draws(seed) through the StyleGAN1 mapping network
+            sg1 = load_stylegan1(ckpt, device=device)
+            with torch.inference_mode():
+                latent_selection = sg1.map_latents(Draws(seed, device).normal(latent_count, 512))
+            del sg1
         else:
             latent_selection = generate_latents(
                 latent_count, ckpt, G_res, noconst, latent_dim, n_mlp, channel_multiplier, seed=seed, device=device
@@ -187,7 +199,7 @@ def generate(
 
     # ---- generator ----
     gen = load_generator_for_render(
-        ckpt, G_res, out_size, noconst, latent_dim, n_mlp, channel_multiplier, base_res_factor, device=device
+        ckpt, G_res, out_size, noconst, latent_dim, n_mlp, channel_multiplier, base_res_factor, stylegan1, device=device
     )
     truncation_latent = None
     if (not isinstance(truncation_timeline, float)) or truncation_timeline != 1.0:

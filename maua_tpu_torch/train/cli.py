@@ -8,10 +8,16 @@ ADA is on by default (`--augment`), with the JAX CLI's resolution rules:
 the CPU, `--ada_fast_warp -1` turns the 1x-grid warp on from 512^2,
 `--ada_fft_taper 0` turns the fft warp's taper off. `--balanced_consistency`
 and `--contrastive` (with `--contrastive_momentum` and `--contrastive_queue`)
-run too. Flags for work that waits for a later part of the port raise
-NotImplementedError when set: eval / FID / SWD, wandb, spectral norms, the
-device monitor and the trace capture (telemetry), and multi-host runs. The
-TPU layout `--s2d_min_res` is accepted and ignored.
+run too. `--eval_every N` evaluates the EMA generator every N steps:
+`--eval_metric swd` against the first `--swd_n_sample` reals, or `fid`
+against `--inception_stats` (with `--inception_weights` / `--fid_inception`)
+under the reference's truncation protocol; each score goes to stdout
+(`{"SWD": ...}` / `{"FID": ...}`) and to metrics.jsonl (the metric's dict
+with the same key, the eval's seconds and its forward-kernel launches
+added). Flags for work that waits for a later part of the
+port raise NotImplementedError when set: wandb, spectral norms, the device
+monitor and the trace capture (telemetry), and multi-host runs. The TPU
+layout `--s2d_min_res` is accepted and ignored.
 
 Each logged step appends one JSON line to `<run_dir>/metrics.jsonl` with the
 JAX package's metric names, the D phase's `sign_sum` and `n_pred` (ADA's
@@ -35,6 +41,7 @@ import torch
 
 from ..data import DataLoader, MultiResolutionRecordDataset
 from ..device import resolve_device
+from ..draws import Draws
 from ..ops import fused_act
 from .checkpoint import (
     is_port_checkpoint,
@@ -64,7 +71,6 @@ def save_image_grid(images: np.ndarray, path: str, n_cols: int = 4) -> None:
 
 def _refuse_unported(args) -> None:
     unported = {
-        "--eval_every": (args.eval_every > 0, "evaluation, ROADMAP item 12"),
         "--wandb": (args.wandb, "logging goes to metrics.jsonl"),
         "--log_spec_norm": (args.log_spec_norm, "telemetry, ROADMAP item 14"),
         "--monitor": (args.monitor, "telemetry, ROADMAP item 14"),
@@ -77,6 +83,35 @@ def _refuse_unported(args) -> None:
     for flag, (is_set, where) in unported.items():
         if is_set:
             raise NotImplementedError(f"{flag} is not ported to maua_tpu_torch yet ({where})")
+
+
+def _eval_mean_latent(g_ema, seed: int, device) -> torch.Tensor:
+    """The EMA generator's mean of 2^14 mapped z from Draws(seed)."""
+    return g_ema.get_latent(Draws(seed, device).normal(2**14, g_ema.style_dim)).mean(dim=0, keepdim=True)
+
+
+def _eval_swd(g_ema, reals: np.ndarray, batch: int, seed: int, step: int, device) -> dict:
+    """SWD of len(reals) EMA samples (truncation 1, stored noise; z from
+    Draws(seed + 7 + step)) against the reals."""
+    from ..eval.cli import make_fid_sampler
+    from ..eval.swd import swd
+
+    synth = make_fid_sampler(g_ema, _eval_mean_latent(g_ema, seed, device))
+    draws = Draws(seed + 7 + step, device)
+    fakes = []
+    for start in range(0, len(reals), batch):
+        fakes.append(synth(draws, batch, 1.0)[: min(batch, len(reals) - start)].float().cpu().numpy())
+    return swd(reals, np.concatenate(fakes))
+
+
+def _eval_fid(g_ema, feats, real_stats, n_sample: int, batch: int, seed: int, device) -> dict:
+    """FID of n_sample EMA samples under the reference's truncation protocol
+    (U(0.9, 1.5) per batch toward the mean latent; z from Draws(0))."""
+    from ..eval.cli import make_fid_sampler
+    from ..eval.metrics import fid
+
+    synth = make_fid_sampler(g_ema, _eval_mean_latent(g_ema, seed, device))
+    return fid(synth, feats, real_stats, n_sample=n_sample, batch_size=batch, draws=Draws(0, device))
 
 
 def train_loop(args) -> Optional[TrainState]:
@@ -153,6 +188,22 @@ def train_loop(args) -> Optional[TrainState]:
     ).to(device)
     draw_gen = torch.Generator(device=device).manual_seed(args.seed + 2)
 
+    # periodic eval of the EMA generator: SWD (weight-free) or FID
+    swd_reals = real_stats = None
+    if args.eval_every > 0 and args.eval_metric == "swd":
+        reals = np.stack([dataset[i] for i in range(min(args.swd_n_sample, len(dataset)))])
+        if reals.dtype == np.uint8:  # uint8 HWC records
+            reals = reals.transpose(0, 3, 1, 2).astype(np.float32) / 127.5 - 1.0
+        swd_reals = reals
+    elif args.eval_every > 0 and args.inception_stats:
+        import pickle
+
+        from ..eval.cli import _feature_net
+
+        eval_feats, eval_pretrained, eval_fingerprint = _feature_net(args.inception_weights, args.fid_inception, device)
+        with open(args.inception_stats, "rb") as f:
+            real_stats = pickle.load(f)
+
     counts = {"fused_bias_act launches": 0, "fused_bias_act_grad launches": 0}
     try:
         with open(os.path.join(args.run_dir, "metrics.jsonl"), "a") as metrics_file:
@@ -180,6 +231,23 @@ def train_loop(args) -> Optional[TrainState]:
                     with torch.no_grad():
                         imgs, _ = state.g_ema(sample_z, randomize_noise=False)
                     save_image_grid(imgs.cpu().numpy(), os.path.join(args.run_dir, f"samples/{i:07d}.png"))
+
+                if args.eval_every > 0 and i > 0 and i % args.eval_every == 0 and (swd_reals is not None or real_stats is not None):
+                    t_eval, launched = time.time(), fused_act.launches
+                    with torch.no_grad():
+                        if swd_reals is not None:
+                            scores = _eval_swd(state.g_ema, swd_reals, args.fid_batch, args.seed, i, device)
+                            key, value = "SWD", scores["swd_avg"]
+                        else:
+                            scores = _eval_fid(state.g_ema, eval_feats, real_stats, args.fid_n_sample, args.fid_batch,
+                                               args.seed, device)
+                            scores.update(pretrained=eval_pretrained, weights_fingerprint=eval_fingerprint)
+                            key, value = "FID", scores["fid"]
+                    scores.update({key: value, "step": i, "eval_seconds": time.time() - t_eval,
+                                   "fused_bias_act launches": fused_act.launches - launched})
+                    print(json.dumps({key: value, "step": i}), flush=True)
+                    metrics_file.write(json.dumps(scores) + "\n")
+                    metrics_file.flush()
 
                 if args.checkpoint_every > 0 and i > 0 and i % args.checkpoint_every == 0:
                     save_checkpoint(args.run_dir, state, step=i)
@@ -256,12 +324,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--wandb", action="store_true")
     p.add_argument("--wandb_project", type=str, default="maua_tpu")
     p.add_argument("--log_spec_norm", action="store_true")
-    p.add_argument("--eval_every", type=int, default=0, help="metric interval (0 = off; not ported yet)")
-    p.add_argument("--eval_metric", type=str, default="fid", choices=["fid", "swd"])
-    p.add_argument("--swd_n_sample", type=int, default=256)
-    p.add_argument("--inception_stats", type=str, default=None)
+    p.add_argument("--eval_every", type=int, default=0, help="metric interval (0 = off)")
+    p.add_argument("--eval_metric", type=str, default="fid", choices=["fid", "swd"],
+                   help="fid needs --inception_stats (from eval.cli inception); swd is weight-free")
+    p.add_argument("--swd_n_sample", type=int, default=256, help="real/fake set size for --eval_metric swd")
+    p.add_argument("--inception_stats", type=str, default=None, help="pkl from eval.cli inception")
     p.add_argument("--inception_weights", type=str, default=None)
-    p.add_argument("--fid_inception", action="store_true")
+    p.add_argument("--fid_inception", action="store_true", help="inception_weights are pytorch-fid pt_inception")
     p.add_argument("--fid_n_sample", type=int, default=2500)
     p.add_argument("--fid_batch", type=int, default=6)
     p.add_argument("--profile", action="store_true")

@@ -305,10 +305,11 @@ def test_cli_trains_two_steps_and_resumes(shards, tmp_path):
 
 
 def test_cli_refuses_unported_work(shards, tmp_path):
-    """Eval, wandb, spectral norms, the monitor, the trace capture and
-    multi-host flags refuse (ADA, bCR and contrastive run, tested below)."""
+    """Wandb, spectral norms, the monitor, the trace capture and multi-host
+    flags refuse (ADA, bCR and contrastive run, tested below; --eval_every
+    runs, tests/test_torch_port_eval.py)."""
     run = str(tmp_path / "run")
-    for flag in (["--eval_every", "5"], ["--wandb"], ["--log_spec_norm"], ["--monitor"], ["--profile"],
+    for flag in (["--wandb"], ["--log_spec_norm"], ["--monitor"], ["--profile"],
                  ["--num_processes", "2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP|metrics.jsonl"):
             main(_cli_args(shards, run, "--iter", "1", *flag))

@@ -4,7 +4,8 @@ draws), one whole generate() from a WAV file to frames against the JAX
 generate() (latents from a file, noise from numpy, frames within 1 uint8
 level), and the port's own runs: tensor truncation, a bends plugin, rewrites
 that leave the weights untouched, the CLI with a plugin file and OVERRIDE,
-and the refusal to run without a card unless asked for the CPU."""
+and the refusal to run without a card unless asked for the CPU or to take a
+StyleGAN2 checkpoint as a StyleGAN1 one."""
 
 import argparse
 import importlib
@@ -239,7 +240,9 @@ def test_generate_without_a_card_needs_cpu(ckpt, wav, tmp_path):
 
 
 def test_generate_refuses_stylegan1_and_mesh(ckpt, wav):
-    with pytest.raises(NotImplementedError, match="StyleGAN1"):
+    """stylegan1=True runs (tests/test_torch_port_stylegan1.py) but refuses a
+    StyleGAN2 checkpoint; mesh= is not ported."""
+    with pytest.raises(ValueError, match="StyleGAN1"):
         tpipe.generate(ckpt, wav, stylegan1=True, device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         tpipe.generate(ckpt, wav, mesh=object(), device="cpu")

@@ -1,6 +1,7 @@
 """maua_tpu_torch stands alone and fails loudly without a card: importing
-every module (the training, data, audio, reactive and pipeline subpackages
-and the example plugins included) pulls in no jax,
+every module (the training, data, audio, reactive, pipeline and eval
+subpackages, StyleGAN1, the TF-pickle reader and the example plugins
+included) pulls in no jax,
 flax or maua_tpu; the entry points raise RuntimeError when they would need
 CUDA and there is none; chip_smoke.py fails without a card and outside the
 repo."""
@@ -48,12 +49,15 @@ def test_package_imports_no_jax_or_maua_tpu():
     )
     assert out.returncode == 0, out.stderr
     n_modules, names, bad = out.stdout.strip().split(" ", 2)
-    assert int(n_modules) >= 52
+    assert int(n_modules) >= 66
     for sub in ("train.step", "train.cli", "train.checkpoint", "train.augment", "train.fft_warp", "train.contrastive",
                 "ops.gather", "data.prepare", "data.loader", "data.records", "data.synthetic",
                 "audio.postprocess", "audio.dsp", "audio.hpss", "audio.onsets", "audio.chroma", "audio.features",
                 "audio.io", "audio.segmentation", "audio.util", "reactive.latent", "reactive.noise", "reactive.bend",
-                "pipeline.defaults", "pipeline.generate", "pipeline.cli", "examples.tauceti", "examples.kelp"):
+                "pipeline.defaults", "pipeline.generate", "pipeline.cli", "examples.tauceti", "examples.kelp",
+                "pipeline.sample", "pipeline.select_latents", "pipeline.interpolate", "pipeline.projector",
+                "models.stylegan1", "io.tf_pkl", "ops.resize", "draws", "eval.lpips", "eval.inception",
+                "eval.metrics", "eval.swd", "eval.cli"):
         assert f"maua_tpu_torch.{sub}" in names.split(","), sub
     assert bad == "[]", f"maua_tpu_torch imported {bad}"
 
