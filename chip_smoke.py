@@ -85,13 +85,34 @@ Phases, each printing JSON lines:
      interpolation_video() with segmented noise; (d) generate_and_select()
      of 24 images; (e) generate(stylegan1=True) over 4 s with the FFHQ
      StyleGAN1, and load_tf_generator() of a full-width Gs pickle; (f) the
-     eval CLI's inception (512 images at 256^2), fid (1024 samples) and ppl
-     (256 pairs, LPIPS-VGG) in exact and fast; (g) the default train CLI
+     eval CLI's inception (512 images at 256^2) and fid (1024 samples) in
+     exact and fast, ppl (256 pairs, LPIPS-VGG) in exact, and ppl refusing
+     fast; (g) the default train CLI
      with --eval_every and SWD. Then both kernels against their plain
      versions at the launch shapes of (a), (b) and (f) not held before
      (`kernel_tools`).
+ 15. the VAE, card against CPU (`vae_card_vs_cpu`): LogCoshVAE at the
+     reference's widths (hidden 32-512, latent 512), 64^2, batch 8, training
+     mode: forward, running statistics and one step's gradients;
+ 16. the VAE path (`vae_main_path`): 512 synthetic 64^2 images -> vae_cli
+     --size 64 --batch_size 64 for 51 steps -> prepare_vae_codes over the
+     shards with the trained weights; 10 + 10 launches per train step and 5
+     per encoded batch, counted; images/s, s/step, the loss, codes/s, peak
+     memory; then both kernels against their plain versions at every VAE
+     launch shape in fp32 and bf16 (`kernel_vae`, `kernel_vae_step`);
+ 17. telemetry (`telemetry`): the default train CLI at 256^2 for 8 steps
+     without and with --log_spec_norm --monitor --profile, s/step of each,
+     the trace, gpumon.jsonl and the sigmas; the monitor thread and the
+     memory helpers on the card;
+ 18. data parallel on one card (`parallel_on_card`): the train CLI at world
+     size 1 over NCCL (--coordinator) against no coordinator, 4 steps at
+     256^2, and render(mesh=[cuda:0]) against render() at 1024^2;
+ 19. generate() with the temper and rewrite_demo plugins at 1024^2 for 2 s
+     (`plugins`), the forward kernel's launches counted.
 The line before the last lists both kernels (`kernels`, with their launches
-in the fp32 ADA run (a) of phase 10); the last line is
+in the VAE trainer's run of phase 16 and times summed over one fp32 VAE step;
+`kernels_train` keeps the fp32 ADA run's numbers of earlier slices); the
+last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before it; without
 a CUDA card, or without the package beside this file, the script fails at
 once.
@@ -1962,20 +1983,27 @@ def phase_tools_main_path(tmp: str, ada_shards: str) -> dict:
                              "--inception_weights", inc_w, *common], f"(f) inception {prec}", 0)
         fid, s_fid, sh_fid = cli(["fid", "--ckpt", ckpt, "--stats", stats, "--n_sample", str(fid_n), "--batch", str(fid_b),
                                   "--inception_weights", inc_w, *common], f"(f) fid {prec}", N_MLP + (fid_n // fid_b) * per_z)
-        ppl, s_ppl, sh_ppl = cli(["ppl", "--ckpt", ckpt, "--n_sample", str(ppl_n), "--batch", str(ppl_b),
-                                  "--lpips_weights", lp_w, *common], f"(f) ppl {prec}", (ppl_n // ppl_b) * per_z)
         require(inc["pretrained"] and inc["n_features"] == 2048, f"(f) inception {inc}")
-        require(np.isfinite(fid["fid"]) and np.isfinite(ppl["ppl"]) and ppl["distance"] == "lpips-vgg", f"(f) {fid} {ppl}")
-        if prec == "exact":
-            shapes["f_fid"], shapes["f_ppl"] = sh_fid, sh_ppl
+        require(np.isfinite(fid["fid"]), f"(f) {fid}")
         results[f"f_{prec}"] = dict(inception_images_per_s=512 / s_inc, inception_s=s_inc, fid=fid["fid"],
-                                    fid_samples_per_s=fid_n / s_fid, fid_s=s_fid, ppl=ppl["ppl"],
-                                    ppl_pairs_per_s=ppl_n / s_ppl, ppl_s=s_ppl)
+                                    fid_samples_per_s=fid_n / s_fid, fid_s=s_fid)
+        if prec == "exact":  # ppl runs exact only
+            ppl, s_ppl, sh_ppl = cli(["ppl", "--ckpt", ckpt, "--n_sample", str(ppl_n), "--batch", str(ppl_b),
+                                      "--lpips_weights", lp_w, *common], "(f) ppl exact", (ppl_n // ppl_b) * per_z)
+            require(np.isfinite(ppl["ppl"]) and ppl["distance"] == "lpips-vgg", f"(f) {ppl}")
+            shapes["f_fid"], shapes["f_ppl"] = sh_fid, sh_ppl
+            results["f_exact"].update(ppl=ppl["ppl"], ppl_pairs_per_s=ppl_n / s_ppl, ppl_s=s_ppl)
+        else:
+            try:
+                eval_cli.main(["ppl", "--ckpt", ckpt, "--n_sample", str(ppl_n), "--lpips_weights", lp_w, *common])
+                refused = False
+            except ValueError:
+                refused = True
+            require(refused, "(f) ppl --precision fast ran")
+            results["f_fast"]["ppl_refused"] = refused
         emit(phase="tools_main_path", run="f_eval", precision=prec, **results[f"f_{prec}"])
     results["f_fid_fast_minus_exact"] = results["f_fast"]["fid"] - results["f_exact"]["fid"]
-    results["f_ppl_fast_over_exact"] = results["f_fast"]["ppl"] / results["f_exact"]["ppl"]
-    emit(phase="tools_main_path", run="f_eval_precision", fid_fast_minus_exact=results["f_fid_fast_minus_exact"],
-         ppl_fast_over_exact=results["f_ppl_fast_over_exact"])
+    emit(phase="tools_main_path", run="f_eval_precision", fid_fast_minus_exact=results["f_fid_fast_minus_exact"])
 
     # (g) the default train CLI (ADA) with --eval_every and SWD, on phase 10's shards
     run = os.path.join(tmp, "run_eval")
@@ -2017,6 +2045,391 @@ def phase_kernels_tools(shapes: dict) -> None:
     emit(phase="kernel_tools", dtype="float32", shapes=rows)
 
 
+# ---------------------------------------------------------------- phases 15-19: VAE, telemetry, parallel, plugins
+VAE_SIZE, VAE_BATCH, VAE_STEPS, VAE_IMAGES = 64, 64, 50, 512
+VAE_HIDDEN = (32, 64, 128, 256, 512)  # the reference's accelerate_logcosh widths; latent 512
+VAE_FWD_PER_STEP = 2 * len(VAE_HIDDEN)  # 5 encoder + 4 decoder + 1 final ConvBN(fused_lrelu)
+VAE_ENC_PER_BATCH = len(VAE_HIDDEN)  # prepare_vae_codes runs the encoder only
+
+
+def vae_model(seed: int):
+    from maua_tpu_torch.models.autoencoder import LogCoshVAE
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return LogCoshVAE(size=VAE_SIZE, latent_dim=512, hidden_dims=VAE_HIDDEN)
+
+
+def rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over the largest |b|."""
+    return float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()), 1e-12)
+
+
+def phase_vae_card_vs_cpu() -> None:
+    """LogCoshVAE at full width (hidden 32-512, latent 512), 64^2, batch 8, in
+    training mode from the same weights, images and reparameterisation draw,
+    exact fp32 on both: reconstruction, mu, log_var, the loss and the updated
+    running statistics within 1e-3 of each tensor's largest value, and one
+    step's parameter gradients within 1e-3 of the largest gradient (judged as
+    one vector; the worst tensor on its own is reported)."""
+    import copy
+
+    from maua_tpu_torch.models.blocks import tf32
+
+    cpu = vae_model(3).train()
+    card = copy.deepcopy(cpu).cuda()
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.uniform(-1, 1, (8, 3, VAE_SIZE, VAE_SIZE)).astype(np.float32))
+    eps = torch.from_numpy(rng.standard_normal((8, 512)).astype(np.float32))
+    outs = {}
+    for label, m, dev in (("card", card, "cuda"), ("cpu", cpu, "cpu")):
+        with tf32(conv=False, matmul=False):
+            recon, mu, log_var = m(x.to(dev), eps=eps.to(dev))
+            loss = m.loss(x.to(dev), recon, mu, log_var)["Total"]
+            grads = torch.autograd.grad(loss, list(m.parameters()))
+        outs[label] = dict(fwd=[t.detach().cpu() for t in (recon, mu, log_var, loss.reshape(1))],
+                           grads=[g.cpu() for g in grads], buffers=[b.cpu() for b in m.buffers()])
+    fwd = {n: rel(a, b) for n, a, b in zip(("recon", "mu", "log_var", "loss"), outs["card"]["fwd"], outs["cpu"]["fwd"])}
+    buffers = max(rel(a, b) for a, b in zip(outs["card"]["buffers"], outs["cpu"]["buffers"]))
+    grads = rel(torch.cat([g.reshape(-1) for g in outs["card"]["grads"]]), torch.cat([g.reshape(-1) for g in outs["cpu"]["grads"]]))
+    names = [n for n, _ in cpu.named_parameters()]
+    per_tensor = {n: rel(a, b) for n, a, b in zip(names, outs["card"]["grads"], outs["cpu"]["grads"])}
+    worst = max(per_tensor, key=per_tensor.get)
+    require(max(fwd.values()) <= 1e-3 and buffers <= 1e-3 and grads <= 1e-3,
+            f"VAE card vs CPU: forward {fwd}, running statistics {buffers}, gradients {grads}")
+    emit(phase="vae_card_vs_cpu", size=VAE_SIZE, batch=8, hidden_dims=list(VAE_HIDDEN), latent_dim=512,
+         rel_err_forward=fwd, rel_err_running_stats=buffers, rel_err_gradients=grads,
+         worst_gradient_tensor=worst, worst_gradient_tensor_rel_err=per_tensor[worst], tolerance="1e-3 of the largest value")
+
+
+def phase_vae_main_path(tmp: str) -> dict:
+    """The VAE path at the reference's configuration: 512 synthetic 64^2
+    images in raw shards -> `vae_cli --size 64 --batch_size 64` (LogCoshVAE,
+    hidden 32-512, latent 512, Adam 1e-3) for 51 steps, saving the weights ->
+    `prepare_vae_codes` over the shards with them. The launch counters are set
+    to 0 just before each and read just after: 10 forward and 10 gradient
+    launches per train step, 5 forward per encoded batch. s/step from the
+    trainer's own elapsed times between its logs at steps 0 and 50, and the
+    same split into the CLI's host data function alone and train_vae alone
+    on a batch already on the card; the loss must fall; the codes of the
+    first batch against the CPU's."""
+    from maua_tpu_torch.data import RecordShardReader
+    from maua_tpu_torch.data.prepare_vae_codes import encode, load_vae
+    from maua_tpu_torch.data.prepare_vae_codes import main as codes_main
+    from maua_tpu_torch.data.synthetic import write_synth_shards
+    from maua_tpu_torch.ops import fused_act
+    from maua_tpu_torch.train import vae_cli
+
+    shards, ckpt, codes = (os.path.join(tmp, n) for n in ("vae_shards", "vae.pt", "vae_codes"))
+    write_synth_shards(shards, VAE_SIZE, VAE_IMAGES, fmt="raw", seed=51, shard_size=256)
+    steps = VAE_STEPS + 1  # the trainer logs every 50 steps from step 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_act.launches = fused_act.grad_launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        fwd_shapes, grad_shapes = record_launch_shapes(lambda: vae_cli.main(
+            ["--path", shards, "--size", str(VAE_SIZE), "--batch_size", str(VAE_BATCH), "--iter", str(steps),
+             "--device", "cuda", "--save", ckpt]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (fused_act.launches, fused_act.grad_launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    lines = [json.loads(x) for x in buf.getvalue().strip().splitlines()]
+    logs, score = [x for x in lines if "step" in x], lines[-1]
+    require(launches == (VAE_FWD_PER_STEP * steps, VAE_FWD_PER_STEP * steps),
+            f"vae_cli: launches {launches}, derived {VAE_FWD_PER_STEP} + {VAE_FWD_PER_STEP} per step x {steps}")
+    require([x["step"] for x in logs] == [0, VAE_STEPS] and not score["failed"], f"vae_cli lines {lines}")
+    require(all(np.isfinite(x["Total"]) for x in logs) and logs[-1]["Total"] < logs[0]["Total"],
+            f"vae_cli: the loss did not fall: {[x['Total'] for x in logs]}")
+    s_step = (logs[-1]["elapsed"] - logs[0]["elapsed"]) / VAE_STEPS
+    per_step = ({k: v // steps for k, v in fwd_shapes.items()}, {k: v // steps for k, v in grad_shapes.items()})
+    require(sum(per_step[0].values()) == VAE_FWD_PER_STEP and sum(per_step[1].values()) == VAE_FWD_PER_STEP,
+            f"vae launch shapes per step {per_step}")
+
+    torch.cuda.synchronize()
+    fused_act.launches = fused_act.grad_launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = codes_main(["--path", shards, "--size", str(VAE_SIZE), "--out", codes, "--batch", str(VAE_BATCH),
+                         "--vae_ckpt", ckpt, "--device", "cuda"])
+    torch.cuda.synchronize()
+    codes_s = time.perf_counter() - t0
+    n_batches = -(-VAE_IMAGES // VAE_BATCH)
+    require(rc == 0 and (fused_act.launches, fused_act.grad_launches) == (VAE_ENC_PER_BATCH * n_batches, 0),
+            f"prepare_vae_codes: launches {(fused_act.launches, fused_act.grad_launches)}, derived "
+            f"{VAE_ENC_PER_BATCH} per batch x {n_batches}")
+    import pickle
+
+    readers = [RecordShardReader(os.path.join(codes, f)) for f in sorted(os.listdir(codes))]
+    got = np.stack([pickle.loads(r.get(i)) for r in readers for i in range(len(r))])
+    require(got.shape == (VAE_IMAGES, 512) and got.dtype == np.float32 and np.isfinite(got).all(), f"codes {got.shape}")
+    model = load_vae(ckpt, VAE_SIZE, 512, "cpu")
+    first = encode(model, shards, VAE_SIZE, VAE_BATCH)[:VAE_BATCH]
+    codes_err = rel(torch.from_numpy(got[:VAE_BATCH]), torch.from_numpy(first))
+    require(codes_err <= 1e-3, f"codes of the first batch: card vs CPU {codes_err}")
+    # where a step's time goes: the CLI's host data function alone, and
+    # train_vae alone on one batch already on the card
+    import itertools
+
+    from maua_tpu_torch.train.vae import train_vae
+
+    data = vae_cli.make_data_fn(shards, VAE_SIZE, 0, "cuda")(VAE_BATCH)
+    next(data)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        batch = next(data)
+    torch.cuda.synchronize()
+    data_s = (time.perf_counter() - t0) / 20
+    model = load_vae(ckpt, VAE_SIZE, 512, "cuda")
+    train_vae(model, itertools.repeat(batch), n_steps=3, log_every=100)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_vae(model, itertools.repeat(batch), n_steps=20, log_every=100)
+    torch.cuda.synchronize()
+    step_only_s = (time.perf_counter() - t0) / 20
+    del model, batch, data
+    result = dict(steps=steps, s_per_step=s_step, images_per_s=VAE_BATCH / s_step, run_wall_s=wall, peak_memory_gb=peak_gb,
+                  data_fn_s_per_batch=data_s, step_on_device_batch_s=step_only_s,
+                  loss=[x["Total"] for x in logs], score=score["Score"], launches=launches,
+                  codes=VAE_IMAGES, codes_per_s=VAE_IMAGES / codes_s, codes_s=codes_s,
+                  codes_launches=VAE_ENC_PER_BATCH * n_batches, codes_card_vs_cpu=codes_err)
+    emit(phase="vae_main_path", size=VAE_SIZE, batch=VAE_BATCH, hidden_dims=list(VAE_HIDDEN), latent_dim=512, **result,
+         launches_per_step=dict(forward=VAE_FWD_PER_STEP, gradient=VAE_FWD_PER_STEP))
+    result["shapes"] = per_step
+    return result
+
+
+def phase_kernels_vae(shapes) -> dict:
+    """Both kernels against their plain versions at every launch shape of
+    one VAE train step (batch 64, 64^2: BatchNorm outputs from 2^2 to 64^2),
+    in fp32 and bf16, with time, bound and plain time per shape; per-step
+    sums weight each shape by its launches. Returns the fp32 sums."""
+    fwd, grad = shapes
+    sums = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        tot = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, launches=0)
+               for k in ("fused_bias_act", "fused_bias_act_grad")}
+        rows = []
+        for (shape, _, with_bias), n in sorted(fwd.items()):
+            case = bias_act_case(shape, dtype, with_bias)
+            rows.append(dict(kernel="fused_bias_act", shape=list(shape), launches_per_step=n, max_abs_err=case["max_abs_err"],
+                             ms=case["kernel_ms"], plain_ms=case["plain_ms"], bound_ms=case["bound_ms"],
+                             bound_share=case["bound_ms"] / case["kernel_ms"]))
+            for k, v in (("ms", case["kernel_ms"]), ("plain_ms", case["plain_ms"]), ("bound_ms", case["bound_ms"])):
+                tot["fused_bias_act"][k] += n * v
+            tot["fused_bias_act"]["launches"] += n
+            tot["fused_bias_act"]["max_abs_err"] = max(tot["fused_bias_act"]["max_abs_err"], case["max_abs_err"])
+        for (shape, _), n in sorted(grad.items()):
+            case = grad_case(shape, dtype)
+            rows.append(dict(kernel="fused_bias_act_grad", shape=list(shape), launches_per_step=n,
+                             max_abs_err=case["max_abs_err"], ms=case["kernel_ms"], plain_ms=case["plain_ms"],
+                             bound_ms=case["bound_ms"], bound_share=case["bound_ms"] / case["kernel_ms"]))
+            for k, v in (("ms", case["kernel_ms"]), ("plain_ms", case["plain_ms"]), ("bound_ms", case["bound_ms"])):
+                tot["fused_bias_act_grad"][k] += n * v
+            tot["fused_bias_act_grad"]["launches"] += n
+            tot["fused_bias_act_grad"]["max_abs_err"] = max(tot["fused_bias_act_grad"]["max_abs_err"], case["max_abs_err"])
+        emit(phase="kernel_vae", dtype=name, size=VAE_SIZE, batch=VAE_BATCH, shapes=rows)
+        for k, t in tot.items():
+            emit(phase="kernel_vae_step", kernel=k, dtype=name, **t)
+        sums[name] = tot
+    return sums["float32"]
+
+
+def phase_telemetry(tmp: str, ada_shards: str) -> dict:
+    """The default train CLI (256^2, batch 12, ADA with adaptive p, fp32) for
+    8 steps without and then with --log_spec_norm --monitor --profile
+    --profile_iters 2: s/step by kind of step for each; the trace (trace.json
+    and key_averages.txt of the first steps), gpumon.jsonl and the sigma
+    summaries on every line.
+    Then the monitor thread at a 50 ms interval (a window of 4) and the
+    memory helpers on the card."""
+    from maua_tpu_torch import telemetry
+    from maua_tpu_torch.telemetry.monitor import DeviceMonitor
+    from maua_tpu_torch.train.cli import build_parser, train_loop
+
+    results = {}
+    for label, extra in (("plain", ()), ("telemetry", ("--log_spec_norm", "--monitor", "--profile", "--profile_iters", "2"))):
+        run = os.path.join(tmp, f"run_telemetry_{label}")
+        argv = ["--path", ada_shards, "--size", str(TRAIN_SIZE), "--batch_size", str(TRAIN_BATCH), "--iter", str(TRAIN_STEPS),
+                "--log_every", "1", "--img_every", "0", "--checkpoint_every", "0", "--num_workers", "4",
+                "--device", "cuda", "--run_dir", run, *extra]
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            train_loop(build_parser().parse_args(argv))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lines = [json.loads(x) for x in open(os.path.join(run, "metrics.jsonl"))]
+        require([x["step"] for x in lines] == list(range(TRAIN_STEPS)), f"telemetry {label}: steps")
+        kinds: dict[str, list[float]] = {}
+        for x in lines:
+            kinds.setdefault("r1_path" if x["step"] == 0 else ("path" if x["step"] % 4 == 0 else "plain"), []).append(x["sec_per_iter"])
+        results[label] = dict(wall_s=wall, s_per_step={k: statistics.median(v) for k, v in kinds.items()})
+        if label == "telemetry":
+            sig = {k: lines[-1][k] for k in lines[-1] if "spectral" in k}
+            require(len(sig) == 6 and all(np.isfinite(v) and v > 0 for v in sig.values())
+                    and all("G spectral_max" in x for x in lines), f"telemetry: sigma keys {sig}")
+            trace = os.path.join(run, "trace")
+            with open(os.path.join(trace, "trace.json")) as f:
+                traced = f.read()
+            require("fused_bias_act_kernel" in traced and '"train_step"' in traced
+                    and os.path.getsize(os.path.join(trace, "key_averages.txt")) > 0
+                    and os.path.exists(os.path.join(run, "gpumon.jsonl")), f"telemetry: {os.listdir(run)}, {os.listdir(trace)}")
+            del traced
+            results[label].update(sigmas_last=sig, trace_bytes=os.path.getsize(os.path.join(trace, "trace.json")))
+    results["overhead"] = {k: results["telemetry"]["s_per_step"][k] / results["plain"]["s_per_step"][k]
+                           for k in results["plain"]["s_per_step"]}
+
+    path = os.path.join(tmp, "gpumon_direct.jsonl")
+    mon = DeviceMonitor(path, interval_s=0.05, window=4).start()
+    x = torch.zeros(1 << 26, device="cuda")
+    t_end = time.time() + 1.0
+    while time.time() < t_end:
+        x.add_(1.0)
+    torch.cuda.synchronize()
+    mon.stop()
+    mon_lines = [json.loads(line) for line in open(path)]
+    require(mon_lines and all(m["dev0_bytes_in_use"] >= x.numel() * 4 and m["host_rss_kb"] > 0 for m in mon_lines),
+            f"monitor lines {mon_lines[:2]}")
+    snap = telemetry.memory_snapshot()
+    telemetry.memory.record_memory_history()
+    y = torch.ones(1 << 20, device="cuda") * 2
+    dump = os.path.join(tmp, "device_memory.pickle")
+    telemetry.save_device_memory_profile(dump)
+    torch.cuda.memory._record_memory_history(enabled=None)
+    require(snap["bytes_in_use"] >= x.numel() * 4 and os.path.getsize(dump) > 0, "memory snapshot / profile")
+    del x, y
+    results["monitor"] = dict(lines=len(mon_lines), dev0_bytes_in_use=mon_lines[-1]["dev0_bytes_in_use"],
+                              memory_profile_bytes=os.path.getsize(dump))
+    emit(phase="telemetry", size=TRAIN_SIZE, batch=TRAIN_BATCH, steps=TRAIN_STEPS, **results)
+    return results
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_parallel_on_card(tmp: str, ada_shards: str) -> dict:
+    """Data parallel at world size 1 on the one card: the default train CLI
+    (256^2, batch 12, ADA, fp32, one loader worker so the records come in
+    one order) for 4 steps with `--coordinator 127.0.0.1:<port>
+    --num_processes 1 --process_id 0` (an NCCL process group: the gradient
+    all-reduce, the stddev all-gather and the reductions all run) against the
+    same run without a coordinator: the losses of every step no further from
+    it than a second run without one (cuDNN deterministic; at most 1e-6
+    apart if both are 0), s/step of each. Then render(mesh=[cuda:0]) of 16
+    frames at 1024^2 against render(): the same frames within one level (the
+    share of values that differ is reported)."""
+    import torch.distributed as dist
+
+    from maua_tpu_torch.io import load_generator
+    from maua_tpu_torch.parallel import get_mesh
+    from maua_tpu_torch.render import render
+    from maua_tpu_torch.train.cli import build_parser, train_loop
+
+    steps, runs = 4, {}
+    # cuDNN's default algorithms may sum a weight gradient in another order
+    # from one run to the next, and Adam's first steps turn a gradient
+    # element's rounding into a step of +-lr: deterministic algorithms here,
+    # and the spread of two runs without a coordinator beside the difference
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, extra in (("single", ()), ("single_again", ()),
+                             ("nccl_world_1", ("--coordinator", f"127.0.0.1:{free_port()}", "--num_processes", "1",
+                                               "--process_id", "0"))):
+            run = os.path.join(tmp, f"run_dp_{label}")
+            argv = ["--path", ada_shards, "--size", str(TRAIN_SIZE), "--batch_size", str(TRAIN_BATCH), "--iter", str(steps),
+                    "--log_every", "1", "--img_every", "0", "--checkpoint_every", "0", "--num_workers", "1",
+                    "--device", "cuda", "--run_dir", run, *extra]
+            with contextlib.redirect_stdout(io.StringIO()) as buf:
+                train_loop(build_parser().parse_args(argv))
+            torch.cuda.synchronize()
+            require(not dist.is_initialized(), f"{label}: the process group was left open")
+            require(("distributed: process 0/1 on cuda:0" in buf.getvalue()) == (label == "nccl_world_1"),
+                    f"{label}: {buf.getvalue()[:200]}")
+            runs[label] = [json.loads(x) for x in open(os.path.join(run, "metrics.jsonl"))]
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    keys = ("Generator", "Discriminator", "R1 Penalty", "Path Length Regularization", "Real Score", "Fake Score")
+
+    def max_rel(a_lines, b_lines):
+        return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6) for a, b in zip(a_lines, b_lines) for k in keys)
+
+    diff, spread = max_rel(runs["nccl_world_1"], runs["single"]), max_rel(runs["single_again"], runs["single"])
+    require(all(len(v) == steps for v in runs.values()) and diff <= max(spread, 1e-6),
+            f"DP world 1 vs single: {diff}, two single runs: {spread}")
+    s_step = {k: [x["sec_per_iter"] for x in v] for k, v in runs.items()}
+
+    gen = load_generator(os.path.join(tmp, "g1024.pt"), device="cuda")
+    rng = np.random.default_rng(61)
+    with torch.inference_mode():
+        latents = gen.map_latents(torch.from_numpy(rng.standard_normal((16, STYLE_DIM), dtype=np.float32)).cuda())
+    noise = noise_list(gen, 16, rng, max_width=256)
+    frames = {}
+    for label, mesh in (("plain", None), ("mesh", get_mesh(["cuda:0"]))):
+        frames[label] = []
+        with capture_frames(frames[label]):
+            t0 = time.perf_counter()
+            render(gen, None, latents, noise, os.path.join(tmp, f"mesh_{label}.mp4"), batch_size=8, fps=24, mesh=mesh)
+            frames[label + "_s"] = time.perf_counter() - t0
+    frame_diff = max(int(np.abs(a.astype(np.int16) - b).max()) for a, b in zip(frames["mesh"], frames["plain"]))
+    frame_diff_share = float(np.mean([np.mean(a != b) for a, b in zip(frames["mesh"], frames["plain"])]))
+    # one device: the same code path; cuDNN may pick another algorithm from one call to the next
+    require(len(frames["mesh"]) == 16 and frame_diff <= 1, f"render(mesh=[cuda:0]) frames {frame_diff} levels off render()'s")
+    del gen
+    torch.cuda.empty_cache()
+    result = dict(steps=steps, loss_rel_diff=diff, single_runs_rel_spread=spread, cudnn_deterministic=True, s_per_step=s_step,
+                  dp_overhead_steady=statistics.median(s_step["nccl_world_1"][1:]) / statistics.median(s_step["single"][1:]),
+                  mesh_render_frames=16, mesh_frame_max_diff=frame_diff, mesh_frame_diff_share=frame_diff_share,
+                  render_s=frames["plain_s"], mesh_render_s=frames["mesh_s"])
+    emit(phase="parallel_on_card", size=TRAIN_SIZE, batch=TRAIN_BATCH, world_size=1, backend="nccl", **result)
+    return result
+
+
+def phase_plugins(tmp: str) -> dict:
+    """generate() with the temper and the rewrite_demo example plugins at
+    1024^2 for 2 s of the phase-12 track (60 frames, batch 8): frames/s end
+    to end and the forward kernel's launches, set to 0 just before and read
+    just after: 8 (generate_latents) + 17 per render batch."""
+    from maua_tpu_torch import examples
+    from maua_tpu_torch.ops import fused_act
+    from maua_tpu_torch.pipeline import generate
+    from maua_tpu_torch.pipeline.cli import load_plugin
+
+    ckpt, wav = os.path.join(tmp, f"g{GEN_SIZE}.pt"), os.path.join(tmp, "track.wav")
+    per_batch = 2 * (int(math.log2(GEN_SIZE)) - 2) + 1
+    CountingWriter = install_counting_writer()
+    results = {}
+    for name in ("temper", "rewrite_demo"):
+        funcs, override = load_plugin(os.path.join(os.path.dirname(examples.__file__), f"{name}.py"))
+        n_frames, batch = 60, 8
+        expected = N_MLP + per_batch * (-(-n_frames // batch))
+        CountingWriter.written = []
+        torch.cuda.synchronize()
+        fused_act.launches = fused_act.grad_launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            generate(ckpt, wav, offset=60.0, duration=2.0, fps=30, batch=batch,
+                     output_file=os.path.join(tmp, f"plugin_{name}.mp4"), device="cuda",
+                     **{"out_size": GEN_SIZE, **funcs, **override})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        require((fused_act.launches, fused_act.grad_launches) == (expected, 0),
+                f"{name}: launches {(fused_act.launches, fused_act.grad_launches)}, derived ({expected}, 0)")
+        require(len(CountingWriter.written) == n_frames and min(CountingWriter.written) > 0, f"{name}: frames written")
+        results[name] = dict(frames=n_frames, wall_s=wall, frames_per_s=n_frames / wall, launches=expected)
+        emit(phase="plugins", plugin=name, size=GEN_SIZE, batch=batch, **results[name])
+        torch.cuda.empty_cache()
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card", file=sys.stderr)
@@ -2054,12 +2467,18 @@ def main() -> int:
             gen = phase_generate_main_path(tmp)
             phase_tools_card_vs_cpu(tmp)
             tools = phase_tools_main_path(tmp, os.path.join(tmp, "ada_shards"))
+            phase_vae_card_vs_cpu()
+            vae = phase_vae_main_path(tmp)
+            phase_telemetry(tmp, os.path.join(tmp, "ada_shards"))
+            phase_parallel_on_card(tmp, os.path.join(tmp, "ada_shards"))
+            phase_plugins(tmp)
     # the ADA step's launch shapes are the plain step's (the fused D pass,
     # the same G and D): the kernels are timed once, at those shapes
     require(ada["shapes"] == train["shapes"]["fp32_exact"], "an fp32 ADA step launches the kernels at other shapes")
     per_step = phase_kernels_train(train["shapes"])
     phase_kernels_generate(gen["shapes"])
     phase_kernels_tools(tools["shapes"])
+    step_vae = phase_kernels_vae(vae["shapes"])
     for label, dt in (("fp32_exact", "float32"), ("bf16", "bfloat16")):
         prof = ada["profile"][label]
         warp_ms = aug_times[f"fft_{dt}"]["forward_ms"] + aug_times[f"fft_b12_{dt}"]["forward_backward_ms"]
@@ -2070,16 +2489,19 @@ def main() -> int:
 
     emit(phase="kernel_render_batch_fp32", kernel="fused_bias_act", render_launches=results["fp32_exact"]["launches"],
          **{k: per_batch["float32"][k] for k in ("ms", "plain_ms", "bound_ms")})
-    # the kernels line: this slice's main path, the fp32 ADA training run (a);
-    # times are sums over the launches of one fp32 step with R1 and the path
-    # penalty (per-launch-shape lines above, `kernel_grad`, `kernel_train_step`)
+    # the training path's numbers as the kernels line of earlier slices gave
+    # them: launches of the fp32 ADA run (a), sums over one fp32 R1 + path step
     step_fp32 = per_step["fp32_exact"]
-    launches = dict(zip(("fused_bias_act", "fused_bias_act_grad"), ada["results"]["a_fp32_exact"]["launches"]))
-    require(min(launches.values()) > 0, f"the ADA training path launched a kernel no time: {launches}")
+    ada_launches = dict(zip(("fused_bias_act", "fused_bias_act_grad"), ada["results"]["a_fp32_exact"]["launches"]))
+    emit(phase="kernels_train", rows=[dict(name=k, ada_run_launches=ada_launches[k], **step_fp32[k]) for k in ada_launches])
+    # the kernels line: this slice's main path, the VAE trainer (vae_cli, 51
+    # steps); times are sums over the launches of one fp32 VAE step
+    launches = dict(zip(("fused_bias_act", "fused_bias_act_grad"), vae["launches"]))
+    require(min(launches.values()) > 0, f"the VAE path launched a kernel no time: {launches}")
     rows = []
     for name, replaces in (("fused_bias_act", "maua_tpu/ops/pallas_act.py:38"),
                            ("fused_bias_act_grad", "maua_tpu/ops/pallas_act.py:43")):
-        t = step_fp32[name]
+        t = step_vae[name]
         rows.append({
             "name": name,
             "route": "cuda",

@@ -1,5 +1,4 @@
-"""Threaded prefetching loader (counterpart of maua_tpu/data/loader.py, one
-process, no mesh: torch.distributed comes with ROADMAP item 13).
+"""Threaded prefetching loader (counterpart of maua_tpu/data/loader.py).
 
 Worker threads read records, in an order shuffled anew each epoch, into a
 bounded queue; `next()` assembles a [num_accumulate, batch, ...] super-batch,
@@ -8,6 +7,16 @@ it to the device: through pinned host memory with a non-blocking copy when
 the device is a CUDA card. A dataset with `uint8_hwc=True` (the train CLI's
 default) gives [A, B, H, W, 3] uint8 batches that the train step normalises
 on the device, a quarter of the bytes of fp32; otherwise [A, B, 3, H, W] fp32.
+
+`batch_size` is the global batch. Under a torch.distributed process group
+each of the `world` ranks loads its block of batch_size / world samples: every
+rank walks the same shuffled epochs and the stream of indices is dealt out in
+blocks of the local batch, block k to rank k % world, and each rank draws the
+flips of the whole global batch and keeps its block's. So the ranks' batches,
+laid end to end, are the batch one process would load (with one worker
+thread, which keeps the order); the JAX package deals the indices out one by
+one (`order[rank::world]`), which gives each rank a disjoint set as well but
+not the single-process batch.
 """
 
 from __future__ import annotations
@@ -19,6 +28,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..parallel import process_count, process_index
 
 __all__ = ["DataLoader"]
 
@@ -30,13 +40,18 @@ class DataLoader:
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         self.dataset = dataset
-        self.batch_size = batch_size
+        self.batch_size = batch_size  # global
         self.num_accumulate = num_accumulate
+        self.world, self.rank = process_count(), process_index()
+        if batch_size % self.world:
+            raise ValueError(f"global batch_size {batch_size} does not split over {self.world} processes")
+        self.local_batch = batch_size // self.world
         self.uint8_hwc = bool(getattr(dataset, "uint8_hwc", False))
         self._rng = np.random.RandomState(seed)
         self._idx_lock = threading.Lock()
-        self._indices = dataset.iter_indices(seed=seed)
-        self._item_q: queue.Queue = queue.Queue(maxsize=PREFETCH * batch_size * num_accumulate)
+        self._indices = (idx for k, idx in enumerate(dataset.iter_indices(seed=seed))
+                         if (k // self.local_batch) % self.world == self.rank)
+        self._item_q: queue.Queue = queue.Queue(maxsize=PREFETCH * self.local_batch * num_accumulate)
         self._stop = threading.Event()
         self._workers = [threading.Thread(target=self._worker, daemon=True) for _ in range(max(1, num_workers))]
         for w in self._workers:
@@ -61,7 +76,7 @@ class DataLoader:
         return self
 
     def __next__(self) -> torch.Tensor:
-        n = self.batch_size * self.num_accumulate
+        n = self.local_batch * self.num_accumulate
         items = [self._item_q.get() for _ in range(n)]
         for item in items:
             if isinstance(item, Exception):
@@ -75,10 +90,11 @@ class DataLoader:
             if batch.shape[1] != 3:
                 raise ValueError(f"dataset yields CHW float but batch item shape is {batch.shape[1:]}")
             batch = batch.astype(np.float32)
-        flips = self._rng.rand(n) < 0.5
+        flips = self._rng.rand(self.batch_size * self.num_accumulate) < 0.5
+        flips = flips.reshape(self.num_accumulate, self.world, self.local_batch)[:, self.rank].reshape(-1)
         w_axis = 2 if self.uint8_hwc else 3  # width: [N, H, W, 3] / [N, 3, H, W]
         batch[flips] = np.flip(batch[flips], axis=w_axis)
-        batch = batch.reshape(self.num_accumulate, self.batch_size, *batch.shape[1:])
+        batch = batch.reshape(self.num_accumulate, self.local_batch, *batch.shape[1:])
         host = torch.from_numpy(np.ascontiguousarray(batch))
         if self.device.type == "cuda":
             return host.pin_memory().to(self.device, non_blocking=True)

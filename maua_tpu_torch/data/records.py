@@ -190,8 +190,8 @@ class MultiResolutionRecordDataset:
 
     def iter_indices(self, seed: int = 0) -> Iterator[int]:
         """Endless epoch iterator: every index once per epoch, each epoch
-        shuffled with the next seed (one process; the rank-strided epochs of
-        a multi-process run come with torch.distributed, ROADMAP item 13)."""
+        shuffled with the next seed (the same on every rank: the loader deals
+        the stream out among the ranks)."""
         while True:
             order = np.arange(len(self))
             np.random.RandomState(seed).shuffle(order)

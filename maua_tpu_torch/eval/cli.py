@@ -6,7 +6,9 @@
 
 Every subcommand takes `--device` (default cuda) and `--precision` (exact:
 TF32 off, the default; fast: TF32 on in the feature networks and the
-generator's large convs). InceptionV3 weights: `--inception_weights` at a
+generator's large convs). `ppl` runs exact only and raises ValueError under
+fast: TF32's rounding swamps the image differences it divides by eps^2.
+InceptionV3 weights: `--inception_weights` at a
 torchvision inception_v3 state dict, with `--fid_inception` for a
 pytorch-fid pt_inception one; without them the network is random from seed 0
 and the JSON says so (`calibrated`, `pretrained` false, and the weights'
@@ -130,6 +132,11 @@ def cmd_ppl(args) -> int:
     from ..io.torch_ckpt import load_generator
     from .metrics import ppl, weights_fingerprint
 
+    if args.precision != "exact":
+        raise ValueError(
+            "ppl runs exact only: TF32's ~1e-3 relative rounding swamps the ~1e-4 image differences that PPL "
+            "divides by eps^2 (--precision fast made the PPL 26.8x too large on an H100)"
+        )
     device = resolve_device(args.device)
     gen = load_generator(args.ckpt, device=device, precision=args.precision)
 
@@ -165,11 +172,9 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="standalone eval metrics")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    def common(sp):
+    def common(sp, precision_help="exact: TF32 off; fast: TF32 on in the feature nets and the large convs"):
         sp.add_argument("--device", type=str, default=None, help="cuda (default) or cpu")
-        sp.add_argument("--precision", choices=["exact", "fast"], default="exact",
-                        help="exact: TF32 off; fast: TF32 on in the feature nets and the large convs "
-                             "(not for ppl: TF32's rounding swamps its eps = 1e-4 image differences)")
+        sp.add_argument("--precision", choices=["exact", "fast"], default="exact", help=precision_help)
 
     pi = sub.add_parser("inception", help="precompute dataset feature stats")
     pi.add_argument("--path", required=True)
@@ -198,7 +203,8 @@ def build_parser() -> argparse.ArgumentParser:
     pp.add_argument("--batch", type=int, default=16)
     pp.add_argument("--crop", action="store_true")
     pp.add_argument("--lpips_weights", type=str, default=None, help="torchvision vgg16 state dict")
-    common(pp)
+    common(pp, "exact only: fast raises ValueError (TF32's rounding swamps the eps = 1e-4 image differences "
+               "that PPL divides by eps^2)")
     return p
 
 

@@ -156,9 +156,12 @@ def perceptual_lpips(backbone_sd=None, net: str = "vgg", device: DeviceLike = No
     return lp.requires_grad_(False).eval().to(resolve_device(device))
 
 
-def make_perceptual_loss(backbone_sd=None, net: str = "vgg", device: DeviceLike = None, precision: str = "exact"):
+def make_perceptual_loss(backbone_sd=None, net: str = "vgg", image_size: int = 64, device: DeviceLike = None,
+                         precision: str = "exact"):
     """loss(a, b) -> the mean over pairs of `perceptual_lpips`'s distance
-    (counterpart of maua_tpu/train/vae.py:26-44)."""
+    (counterpart of maua_tpu/train/vae.py:26-44). `image_size` is the JAX
+    signature's, where flax initialises from an example input; a torch
+    module needs none."""
     lp = perceptual_lpips(backbone_sd, net, device, precision)
 
     def loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

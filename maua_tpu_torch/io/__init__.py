@@ -8,6 +8,7 @@ from .jax_params import (
     lpips_state_dict_from_jax,
     projection_head_state_dict_from_jax,
     stylegan1_state_dict_from_jax,
+    vae_state_dict_from_jax,
 )
 from .tf_pkl import generator_state_dict_from_tf, load_tf_generator, load_tf_pickle_networks
 from .torch_ckpt import infer_generator_config, load_generator, load_torch_checkpoint
@@ -25,4 +26,5 @@ __all__ = [
     "lpips_state_dict_from_jax",
     "projection_head_state_dict_from_jax",
     "stylegan1_state_dict_from_jax",
+    "vae_state_dict_from_jax",
 ]

@@ -21,12 +21,18 @@ G_style keys of `StyleGAN1`, noise buffers included;
 net)` map the JAX feature networks onto torchvision's keys (the JAX
 InceptionV3's `bn_scale` / `bn_mean` -> `bn.weight` / `bn.running_mean`;
 LPIPS's `conv{i}_weight` -> `features.<torchvision index>.weight`, `lin{i}` ->
-`lin{i}.model.1.weight`). Only numpy is needed on the JAX side: any array
+`lin{i}.model.1.weight`). `vae_state_dict_from_jax(variables, model)` maps
+the flax `params` and `batch_stats` of any model of the VAE family onto
+`model`'s state dict: `enc_3` -> `enc.3`, `enc1_0` -> `enc.1.0`, `final_0` ->
+`final`, `BatchNorm_0` `scale` / `bias` / `mean` / `var` -> `bn.weight` /
+`bn.bias` / `bn.running_mean` / `bn.running_var`, Dense `kernel` [in, out] ->
+`weight` [out, in]. Only numpy is needed on the JAX side: any array
 type that `np.asarray` takes will do.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Mapping, Sequence
 
 import numpy as np
@@ -42,6 +48,7 @@ __all__ = [
     "lpips_state_dict_from_jax",
     "projection_head_state_dict_from_jax",
     "stylegan1_state_dict_from_jax",
+    "vae_state_dict_from_jax",
 ]
 
 
@@ -201,4 +208,44 @@ def lpips_state_dict_from_jax(params: Mapping[str, Any], net: str = "vgg") -> di
     while f"lin{i}" in params:
         sd[f"lin{i}.model.1.weight"] = _t(params[f"lin{i}"]).reshape(1, -1, 1, 1)
         i += 1
+    return sd
+
+
+_VAE_MODULE_RULES = [
+    (re.compile(r"^(enc|dec)(\d+)_(\d+)$"), r"\1.\2.\3"),  # SegNet blocks
+    (re.compile(r"^(enc|dec)_(\d+)$"), r"\1.\2"),
+    (re.compile(r"^final_0$"), "final"),
+    (re.compile(r"^BatchNorm_0$"), "bn"),
+]
+_VAE_LEAVES = {"scale": "weight", "mean": "running_mean", "var": "running_var", "kernel": "weight"}
+
+
+def vae_state_dict_from_jax(variables: Mapping[str, Any], model: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """flax variables ({"params": ..., "batch_stats": ...}) of LogCoshVAE,
+    ConvSegNet, VariationalConvSegNet or InceptionVAE -> a state dict for the
+    port's `model`; KeyError / ValueError when the keys or shapes differ."""
+    sd: dict[str, torch.Tensor] = {}
+
+    def walk(tree, path):
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                walk(v, path + [k])
+                continue
+            parts = []
+            for name in path:
+                for pattern, repl in _VAE_MODULE_RULES:
+                    name = pattern.sub(repl, name)
+                parts.append(name)
+            leaf = _VAE_LEAVES.get(k, k) if path and path[-1] == "BatchNorm_0" or k == "kernel" else k
+            t = _t(v)
+            sd[".".join(parts + [leaf])] = t.t().contiguous() if k == "kernel" else t
+
+    walk(variables["params"], [])
+    walk(variables.get("batch_stats", {}), [])
+    want = model.state_dict()
+    if set(sd) != set(want):
+        raise KeyError(f"missing {sorted(set(want) - set(sd))}, unexpected {sorted(set(sd) - set(want))}")
+    for k, v in sd.items():
+        if v.shape != want[k].shape:
+            raise ValueError(f"{k}: {tuple(v.shape)} from JAX, {tuple(want[k].shape)} in the model")
     return sd

@@ -37,6 +37,7 @@ from torch import nn
 
 from ..ops.fused_act import fused_leaky_relu
 from ..ops.upfirdn2d import setup_filter, upfirdn2d
+from ..parallel.mesh import gather_batch, local_rows
 
 DEFAULT_BLUR_KERNEL = (1, 3, 3, 1)
 PRECISIONS = ("exact", "fast")
@@ -392,18 +393,22 @@ class ResBlock(nn.Module):
         return out
 
 
-def minibatch_stddev(x: torch.Tensor, group_size: int = 4, num_features: int = 1, eps: float = 1e-8) -> torch.Tensor:
+def minibatch_stddev(x: torch.Tensor, group_size: int = 4, num_features: int = 1, eps: float = 1e-8,
+                     cross_rank: bool = False) -> torch.Tensor:
     """Append the cross-sample stddev feature map. Groups are taken along the
     outer axis (`reshape(group, -1, ...)`): group member g of statistic j is
     sample g * (B / group) + j, so an interleaved [f0, r0, f1, r1, ...] batch
     whose B / group is even keeps fakes and reals apart. The group clamps to
-    the batch, and to the whole batch when it does not divide it."""
-    b, c, h, w = x.shape
+    the batch, and to the whole batch when it does not divide it. With
+    `cross_rank` the batch is the data-parallel ranks' blocks gathered end to
+    end (`parallel.gather_batch`), and each rank keeps its block's maps."""
+    full = gather_batch(x) if cross_rank else x
+    b, c, h, w = full.shape
     group = min(b, group_size)
     if b % group != 0:
         group = b
-    y = x.reshape(group, -1, num_features, c // num_features, h, w)
+    y = full.reshape(group, -1, num_features, c // num_features, h, w)
     y = torch.sqrt(y.var(dim=0, correction=0) + eps)
     y = y.mean(dim=(2, 3, 4), keepdim=True).squeeze(2)  # [B / group, F, 1, 1]
     y = y.repeat(group, 1, h, w)
-    return torch.cat([x, y], dim=1)
+    return torch.cat([x, local_rows(y) if cross_rank else y], dim=1)

@@ -309,6 +309,7 @@ class Discriminator(nn.Module):
         self.dtype = dtype
         self.stddev_group = stddev_group
         self.stddev_feat = stddev_feat
+        self.cross_rank_stddev = False  # data-parallel training: the statistic over every rank's batch
         blocks: list[nn.Module] = [ConvLayer(3, channels[size], 1)]
         in_channel = channels[size]
         for i in range(log_size, 2, -1):
@@ -329,7 +330,8 @@ class Discriminator(nn.Module):
             hidden = self.hidden(x)
             batch = hidden.shape[0]
             # the statistic in fp32: the variance of near-equal values cancels in bf16
-            out = minibatch_stddev(hidden.float(), self.stddev_group, self.stddev_feat).to(self.dtype)
+            out = minibatch_stddev(hidden.float(), self.stddev_group, self.stddev_feat,
+                                   cross_rank=self.cross_rank_stddev).to(self.dtype)
             out = self.final_conv(out).reshape(batch, -1).float()
             out = self.final_linear(out)
         return (out, hidden) if return_hidden else out

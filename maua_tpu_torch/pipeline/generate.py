@@ -110,12 +110,14 @@ def generate(
     args: Optional[argparse.Namespace] = None,
     device: DeviceLike = None,
 ) -> str:
-    """Render an audio-reactive video; returns the output file path."""
-    if mesh is not None:
-        raise NotImplementedError("multi-GPU rendering (mesh=) is not ported yet")
+    """Render an audio-reactive video; returns the output file path. `mesh`:
+    None, or the devices of a frame-parallel render (`parallel.get_mesh`),
+    starting with `device`."""
     if args is None:
         args = argparse.Namespace(**{k: v for k, v in locals().items() if k != "args"})
     device = args.device = resolve_device(device)
+    if mesh is not None and (not mesh or torch.device(mesh[0]) != device):
+        raise ValueError(f"the mesh {mesh} must start with the render device {device}")
 
     # smoothing independent of frame rate; numpy inputs of the plugins go to `device`
     ar.set_SMF(fps / 30)
@@ -151,6 +153,12 @@ def generate(
     with tf32(conv=False, matmul=False):
         if initialize is not None:
             args = initialize(args)
+        # the default latents and noise read the default onset envelopes: a
+        # plugin with its own initialize but not those functions (as
+        # examples/rewrite_demo.py) gets them too, where the JAX package
+        # raises AttributeError
+        if (get_latents is None or get_noise is None) and not hasattr(args, "lo_onsets"):
+            args = defaults.initialize(args)
 
         # ---- latents ----
         if get_latents is None:
@@ -231,6 +239,7 @@ def generate(
         audio_file=audio_file,
         offset=offset,
         ffmpeg_preset=ffmpeg_preset,
+        mesh=mesh,
         device=device,
     )
     print(f"total time taken: {(time.time() - t0) / 60:.2f} minutes")

@@ -14,10 +14,18 @@ maua_tpu/render/frames.py:45-253).
   for that event only after batch k+1 has been queued, so the copy overlaps
   the next batch's compute.
 * A writer thread drains a bounded queue (4 batches) into the `VideoWriter`.
+* Frame-parallel rendering (`mesh=`, a list of torch devices from
+  `parallel.get_mesh`, the first of which is `device`): each mesh device
+  holds a copy of the generator and synthesises its share of every batch
+  (the batch zero-padded to a multiple of the mesh with `pad_to_multiple`
+  and cut in equal parts; a rewrite's modulation stays whole, since it makes
+  one weight for the batch); the uint8 frames come back to `device` in order.
+  This is the reference's DataParallel over frame batches.
 """
 
 from __future__ import annotations
 
+import copy
 import queue
 from threading import Thread
 from typing import Any, Mapping, Optional, Sequence
@@ -27,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device
+from ..parallel import pad_to_multiple
 from ..reactive.bend import Bend
 from ..reactive.rewrite import Rewrite, apply_rewrites
 from .video import VideoWriter
@@ -84,16 +93,22 @@ def render(
     RuntimeError when there is none). variables: None to use the generator's
     own weights, or a {state-dict key: tensor} mapping that overrides them.
     latents: [n_frames, n_latent, D]; noise: per-layer [n_frames, 1, h, w] or
-    None; truncation: a float or an [n_frames] timeline. `progress` is
-    accepted for signature compatibility and prints nothing."""
-    if mesh is not None:
-        raise NotImplementedError("multi-GPU rendering (mesh=) is not ported yet")
+    None; truncation: a float or an [n_frames] timeline. mesh: None, or
+    the devices of a frame-parallel render (`parallel.get_mesh`), the first
+    of which must be `device`. `progress` is accepted for signature
+    compatibility and prints nothing."""
     device = resolve_device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     gen_device = next(generator.parameters()).device
     if gen_device != device:
         raise ValueError(f"generator is on {gen_device} but render runs on {device}; move it with .to(device)")
+    if mesh is not None:
+        mesh = [torch.device(d) for d in mesh]
+        mesh = [torch.device("cuda", torch.cuda.current_device()) if d.type == "cuda" and d.index is None else d
+                for d in mesh]
+        if not mesh or mesh[0] != device:
+            raise ValueError(f"the mesh {mesh} must start with the render device {device}")
 
     latents = _host(latents)
     n_frames = len(latents)
@@ -143,34 +158,66 @@ def render(
         def take(x, sl):
             return None if x is None else torch.from_numpy(np.ascontiguousarray(x[sl])).to(device)
 
-    own = {**dict(generator.named_parameters()), **dict(generator.named_buffers())}
-    params = own if variables is None else {**own, **variables}
+    def params_of(gen):
+        return {**dict(gen.named_parameters()), **dict(gen.named_buffers())}
+
+    def to(x, dev):
+        return x.to(dev) if isinstance(x, torch.Tensor) else x
+
+    # one replica of the generator (and of the overrides) per mesh device
+    replicas = [(device, generator, variables)]
+    for dev in (mesh or [device])[1:]:
+        gen_d = generator if dev == device else copy.deepcopy(generator).to(dev)
+        vars_d = None if variables is None else {k: v.to(dev) for k, v in variables.items()}
+        replicas.append((dev, gen_d, vars_d))
+    replica_params = []  # what a rewrite transforms: each replica's own tensors, overridden by `variables`
+    for _, gen_d, vars_d in replicas:
+        own = params_of(gen_d)
+        replica_params.append(own if vars_d is None else {**own, **vars_d})
+    tl_d = [to(truncation_latent, dev) for dev, _, _ in replicas]
+
+    def forward(r: int, latent_b, noise_b, trunc_b, bmods_b, rmods_b) -> torch.Tensor:
+        """Replica r's uint8 frames of one (part of a) batch, its inputs on its device."""
+        _, gen, gvars = replicas[r]
+        pairs = [(b.layer, (lambda x, _t=b.transform, _m=m: _t(x, _m))) for b, m in zip(bends, bmods_b)]
+        kwargs = dict(input_is_latent=True, noise=noise_b, randomize_noise=randomize_noise, truncation=trunc_b,
+                      truncation_latent=tl_d[r], bends=pairs)
+        overrides = dict(gvars) if gvars is not None else {}
+        if rewrites:
+            overrides.update(apply_rewrites(replica_params[r], rewrites, rmods_b))
+        if overrides:
+            img, _ = torch.func.functional_call(gen, overrides, (latent_b,), kwargs)
+        else:
+            img, _ = gen(latent_b, **kwargs)
+        return _pack_frames(img, out_size)
 
     def synth_batch(sl: slice) -> torch.Tensor:
-        pairs = [
-            (b.layer, (lambda x, _t=b.transform, _m=take(m, sl): _t(x, _m)))
-            for b, m in zip(bends, bend_mods)
-        ]
-        if not apply_trunc:
-            trunc_b = 1.0
-        else:
-            trunc_b = take(trunc_t, sl) if tensor_trunc else truncation
-        kwargs = dict(
-            input_is_latent=True,
-            noise=[take(n, sl) for n in noise],
-            randomize_noise=randomize_noise,
-            truncation=trunc_b,
-            truncation_latent=truncation_latent,
-            bends=pairs,
-        )
-        overrides = dict(variables) if variables is not None else {}
-        if rewrites:
-            overrides.update(apply_rewrites(params, rewrites, [take(m, sl) for m in rw_mods]))
-        if overrides:
-            img, _ = torch.func.functional_call(generator, overrides, (take(latents, sl),), kwargs)
-        else:
-            img, _ = generator(take(latents, sl), **kwargs)
-        return _pack_frames(img, out_size)
+        trunc_b = (take(trunc_t, sl) if tensor_trunc else truncation) if apply_trunc else 1.0
+        inputs = [take(latents, sl), [take(n, sl) for n in noise], trunc_b,
+                  [take(m, sl) for m in bend_mods], [take(m, sl) for m in rw_mods]]
+        if len(replicas) == 1:
+            return forward(0, *inputs)
+        # frame-parallel: pad the batch to a multiple of the mesh, give each
+        # device an equal part, gather the frames in order on `device`
+        n, parts = inputs[0].shape[0], len(replicas)
+
+        def split(x):
+            if not isinstance(x, torch.Tensor):  # None, or a float truncation
+                return [x] * parts
+            return pad_to_multiple(x, parts)[0].chunk(parts)
+
+        def split_list(xs):
+            cols = [split(x) for x in xs]
+            return [[c[r] for c in cols] for r in range(parts)]
+
+        lat, trunc = split(inputs[0]), split(inputs[2])
+        noises, bmods = split_list(inputs[1]), split_list(inputs[3])
+        frames = []
+        for r, (dev, _, _) in enumerate(replicas):
+            # a rewrite makes one weight per batch: every replica takes the whole batch's modulation
+            frames.append(forward(r, lat[r].to(dev), [to(x, dev) for x in noises[r]], to(trunc[r], dev),
+                                  [to(x, dev) for x in bmods[r]], [to(x, dev) for x in inputs[4]]))
+        return torch.cat([f.to(device) for f in frames])[:n]
 
     # ---- writer thread behind a bounded queue ----
     width, height = _WIDESCREEN.get(out_size) or ((generator.size,) * 2 if out_size is None else (out_size,) * 2)

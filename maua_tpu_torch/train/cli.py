@@ -14,10 +14,25 @@ against `--inception_stats` (with `--inception_weights` / `--fid_inception`)
 under the reference's truncation protocol; each score goes to stdout
 (`{"SWD": ...}` / `{"FID": ...}`) and to metrics.jsonl (the metric's dict
 with the same key, the eval's seconds and its forward-kernel launches
-added). Flags for work that waits for a later part of the
-port raise NotImplementedError when set: wandb, spectral norms, the device
-monitor and the trace capture (telemetry), and multi-host runs. The TPU
-layout `--s2d_min_res` is accepted and ignored.
+added). The TPU layout `--s2d_min_res` is accepted and ignored.
+
+Telemetry: `--log_spec_norm` adds the power-iteration spectral norms of G's
+and D's weights to each log line (`G spectral_min` / `_mean` / `_max`, the
+same for D); `--monitor` starts the device monitor thread
+(`<run_dir>/gpumon.jsonl`: bytes allocated per card now and at the peak,
+host RSS, 30-sample means every 2 s); `--profile` traces the first
+`--profile_iters` steps with torch.profiler into `<run_dir>/trace/`. The
+data and train-step phases of each step are named ranges in the trace.
+`--wandb` logs to wandb when it imports and initialises, and otherwise
+prints `wandb unavailable (...)` and trains on.
+
+Data parallelism: `--coordinator host:port --num_processes N --process_id i`
+(or COORDINATOR_ADDRESS, NUM_PROCESSES and PROCESS_ID) starts one of N
+processes, one per card (`cuda:{i % cards}`; gloo with `--device cpu`).
+`--batch_size` is the global batch; see train/step.py for what is reduced
+over the ranks. Rank 0 alone writes metrics, samples, checkpoints and wandb
+logs and runs the monitor and the trace; evaluation in training is
+single-process and is skipped.
 
 Each logged step appends one JSON line to `<run_dir>/metrics.jsonl` with the
 JAX package's metric names, the D phase's `sign_sum` and `n_pred` (ADA's
@@ -40,9 +55,19 @@ import numpy as np
 import torch
 
 from ..data import DataLoader, MultiResolutionRecordDataset
-from ..device import resolve_device
 from ..draws import Draws
 from ..ops import fused_act
+from ..parallel import (
+    is_main_process,
+    maybe_initialize_distributed,
+    process_count,
+    process_device,
+    process_index,
+    shutdown_distributed,
+)
+from ..telemetry import init_spectral_state, phase, profile_trace, spectral_norms
+from ..telemetry.monitor import DeviceMonitor
+from ..telemetry.spectral import summarize
 from .checkpoint import (
     is_port_checkpoint,
     latest_checkpoint,
@@ -69,20 +94,16 @@ def save_image_grid(images: np.ndarray, path: str, n_cols: int = 4) -> None:
     Image.fromarray(sheet).save(path)
 
 
-def _refuse_unported(args) -> None:
-    unported = {
-        "--wandb": (args.wandb, "logging goes to metrics.jsonl"),
-        "--log_spec_norm": (args.log_spec_norm, "telemetry, ROADMAP item 14"),
-        "--monitor": (args.monitor, "telemetry, ROADMAP item 14"),
-        "--profile": (args.profile, "telemetry, ROADMAP item 14"),
-        "--coordinator/--num_processes/--process_id": (
-            any(v is not None for v in (args.coordinator, args.num_processes, args.process_id)),
-            "multi-host training, ROADMAP item 13",
-        ),
-    }
-    for flag, (is_set, where) in unported.items():
-        if is_set:
-            raise NotImplementedError(f"{flag} is not ported to maua_tpu_torch yet ({where})")
+def init_wandb(args):
+    """A wandb run when wandb imports and initialises, else None (after
+    saying why)."""
+    try:
+        import wandb
+
+        return wandb.init(project=args.wandb_project, config=vars(args))
+    except Exception as e:  # no wandb, no login, no network: metrics.jsonl still gets every line
+        print(f"wandb unavailable ({e}); logging to jsonl only", flush=True)
+        return None
 
 
 def _eval_mean_latent(g_ema, seed: int, device) -> torch.Tensor:
@@ -117,8 +138,20 @@ def _eval_fid(g_ema, feats, real_stats, n_sample: int, batch: int, seed: int, de
 def train_loop(args) -> Optional[TrainState]:
     """Train from parsed arguments; returns the final state (None with
     --print_config)."""
-    _refuse_unported(args)
-    device = resolve_device(args.device)
+    # rendezvous first: the process group decides this process's card
+    multiprocess = maybe_initialize_distributed(args.coordinator, args.num_processes, args.process_id, args.device)
+    try:
+        return _train(args, multiprocess)
+    finally:
+        if multiprocess:
+            shutdown_distributed()
+
+
+def _train(args, multiprocess: bool) -> Optional[TrainState]:
+    device = process_device(args.device)
+    main_process = is_main_process()
+    if multiprocess:
+        print(f"distributed: process {process_index()}/{process_count()} on {device}", flush=True)
     cfg = make_train_config(
         size=args.size,
         batch_size=args.batch_size,
@@ -157,7 +190,9 @@ def train_loop(args) -> Optional[TrainState]:
         # the same automatic rules as the JAX CLI: chunk the lazy regularizers
         # into stddev-group-sized pieces and rematerialise the G synthesis from
         # 512^2 on, where their peak memory bounds the batch
-        reg_chunks=args.reg_chunks if args.reg_chunks > 0 else (max(1, args.batch_size // 4) if args.size >= 512 else 1),
+        # (single-process only: a data-parallel run keeps 1 unless asked)
+        reg_chunks=(args.reg_chunks if args.reg_chunks > 0
+                    else (max(1, args.batch_size // 4) if args.size >= 512 and not multiprocess else 1)),
         remat_synth=args.remat_synth > 0 if args.remat_synth >= 0 else args.size >= 512,
     )
     if args.print_config:
@@ -182,7 +217,9 @@ def train_loop(args) -> Optional[TrainState]:
         dataset, batch_size=cfg.batch_size, num_accumulate=cfg.num_accumulate,
         num_workers=args.num_workers, seed=args.seed, device=device,
     )
-    os.makedirs(args.run_dir, exist_ok=True)
+    if main_process:
+        os.makedirs(args.run_dir, exist_ok=True)
+    wandb_run = init_wandb(args) if args.wandb and main_process else None
     sample_z = torch.from_numpy(
         np.random.default_rng(args.seed + 1).standard_normal((args.n_sample, cfg.latent_dim), dtype=np.float32)
     ).to(device)
@@ -190,7 +227,9 @@ def train_loop(args) -> Optional[TrainState]:
 
     # periodic eval of the EMA generator: SWD (weight-free) or FID
     swd_reals = real_stats = None
-    if args.eval_every > 0 and args.eval_metric == "swd":
+    if args.eval_every > 0 and multiprocess:
+        print("eval-in-training is single-process only; skipping", flush=True)
+    elif args.eval_every > 0 and args.eval_metric == "swd":
         reals = np.stack([dataset[i] for i in range(min(args.swd_n_sample, len(dataset)))])
         if reals.dtype == np.uint8:  # uint8 HWC records
             reals = reals.transpose(0, 3, 1, 2).astype(np.float32) / 127.5 - 1.0
@@ -204,56 +243,89 @@ def train_loop(args) -> Optional[TrainState]:
         with open(args.inception_stats, "rb") as f:
             real_stats = pickle.load(f)
 
-    counts = {"fused_bias_act launches": 0, "fused_bias_act_grad launches": 0}
-    try:
-        with open(os.path.join(args.run_dir, "metrics.jsonl"), "a") as metrics_file:
-            t_last = time.time()
-            for i in range(state.step, args.iter):
-                real = next(loader)
-                draws = draw_step(cfg, state.step, draw_gen, device)
-                before = (fused_act.launches, fused_act.grad_launches)
-                metrics = step_fn(state, real, draws)
-                counts["fused_bias_act launches"] += fused_act.launches - before[0]
-                counts["fused_bias_act_grad launches"] += fused_act.grad_launches - before[1]
+    monitor = trace_ctx = spec_state = None
+    if args.monitor and main_process:
+        monitor = DeviceMonitor(os.path.join(args.run_dir, "gpumon.jsonl"), wandb_run=wandb_run).start()
+    if args.profile and main_process:
+        trace_ctx = profile_trace(os.path.join(args.run_dir, "trace"))
+        trace_ctx.__enter__()
+    if args.log_spec_norm:
+        spec_state = {"G": init_spectral_state(state.g), "D": init_spectral_state(state.d)}
 
-                if i % args.log_every == 0:
-                    log = {k: float(v) for k, v in metrics.items()}  # synchronises the step
-                    log["step"] = i
-                    log["sec_per_iter"] = (time.time() - t_last) / max(args.log_every, 1)
-                    log.update(counts)
-                    counts = dict.fromkeys(counts, 0)
+    counts = {"fused_bias_act launches": 0, "fused_bias_act_grad launches": 0}
+    metrics_file = open(os.path.join(args.run_dir, "metrics.jsonl"), "a") if main_process else None
+    try:
+        t_last = time.time()
+        start = state.step
+        for i in range(start, args.iter):
+            with phase("data"):
+                real = next(loader)
+            draws = draw_step(cfg, state.step, draw_gen, device)
+            before = (fused_act.launches, fused_act.grad_launches)
+            with phase("train_step"):
+                metrics = step_fn(state, real, draws)
+            counts["fused_bias_act launches"] += fused_act.launches - before[0]
+            counts["fused_bias_act_grad launches"] += fused_act.grad_launches - before[1]
+            if trace_ctx is not None and i - start >= args.profile_iters:
+                trace_ctx.__exit__(None, None, None)
+                trace_ctx = None
+
+            if i % args.log_every == 0:
+                log = {k: float(v) for k, v in metrics.items()}  # synchronises the step
+                if spec_state is not None:
+                    for net, module in (("G", state.g), ("D", state.d)):
+                        sigmas, spec_state[net] = spectral_norms(module, spec_state[net])
+                        log.update({f"{net} {k}": v for k, v in summarize(sigmas).items()})
+                log["step"] = i
+                log["sec_per_iter"] = (time.time() - t_last) / max(args.log_every, 1)
+                log.update(counts)
+                counts = dict.fromkeys(counts, 0)
+                if main_process:
                     print(json.dumps({k: round(v, 5) if isinstance(v, float) else v for k, v in log.items()}), flush=True)
                     metrics_file.write(json.dumps(log) + "\n")
                     metrics_file.flush()
-                    t_last = time.time()
+                    if wandb_run is not None:
+                        wandb_run.log(log, step=i)
+                t_last = time.time()
 
-                if args.img_every > 0 and i % args.img_every == 0:
-                    with torch.no_grad():
-                        imgs, _ = state.g_ema(sample_z, randomize_noise=False)
-                    save_image_grid(imgs.cpu().numpy(), os.path.join(args.run_dir, f"samples/{i:07d}.png"))
+            if main_process and args.img_every > 0 and i % args.img_every == 0:
+                with torch.no_grad():
+                    imgs, _ = state.g_ema(sample_z, randomize_noise=False)
+                save_image_grid(imgs.cpu().numpy(), os.path.join(args.run_dir, f"samples/{i:07d}.png"))
 
-                if args.eval_every > 0 and i > 0 and i % args.eval_every == 0 and (swd_reals is not None or real_stats is not None):
-                    t_eval, launched = time.time(), fused_act.launches
-                    with torch.no_grad():
-                        if swd_reals is not None:
-                            scores = _eval_swd(state.g_ema, swd_reals, args.fid_batch, args.seed, i, device)
-                            key, value = "SWD", scores["swd_avg"]
-                        else:
-                            scores = _eval_fid(state.g_ema, eval_feats, real_stats, args.fid_n_sample, args.fid_batch,
-                                               args.seed, device)
-                            scores.update(pretrained=eval_pretrained, weights_fingerprint=eval_fingerprint)
-                            key, value = "FID", scores["fid"]
-                    scores.update({key: value, "step": i, "eval_seconds": time.time() - t_eval,
-                                   "fused_bias_act launches": fused_act.launches - launched})
-                    print(json.dumps({key: value, "step": i}), flush=True)
-                    metrics_file.write(json.dumps(scores) + "\n")
-                    metrics_file.flush()
+            if args.eval_every > 0 and i > 0 and i % args.eval_every == 0 and (swd_reals is not None or real_stats is not None):
+                t_eval, launched = time.time(), fused_act.launches
+                with torch.no_grad():
+                    if swd_reals is not None:
+                        scores = _eval_swd(state.g_ema, swd_reals, args.fid_batch, args.seed, i, device)
+                        key, value = "SWD", scores["swd_avg"]
+                    else:
+                        scores = _eval_fid(state.g_ema, eval_feats, real_stats, args.fid_n_sample, args.fid_batch,
+                                           args.seed, device)
+                        scores.update(pretrained=eval_pretrained, weights_fingerprint=eval_fingerprint)
+                        key, value = "FID", scores["fid"]
+                scores.update({key: value, "step": i, "eval_seconds": time.time() - t_eval,
+                               "fused_bias_act launches": fused_act.launches - launched})
+                print(json.dumps({key: value, "step": i}), flush=True)
+                metrics_file.write(json.dumps(scores) + "\n")
+                metrics_file.flush()
+                if wandb_run is not None:
+                    wandb_run.log({key: value}, step=i)
 
-                if args.checkpoint_every > 0 and i > 0 and i % args.checkpoint_every == 0:
-                    save_checkpoint(args.run_dir, state, step=i)
-        save_checkpoint(args.run_dir, state)
+            if main_process and args.checkpoint_every > 0 and i > 0 and i % args.checkpoint_every == 0:
+                save_checkpoint(args.run_dir, state, step=i)
+        if main_process:
+            save_checkpoint(args.run_dir, state)
     finally:
         loader.close()
+        if metrics_file is not None:
+            metrics_file.close()
+        if monitor is not None:
+            monitor.stop()
+        if trace_ctx is not None:
+            trace_ctx.__exit__(None, None, None)
+        if wandb_run is not None:
+            wandb_run.finish()
     return state
 
 
@@ -333,10 +405,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fid_inception", action="store_true", help="inception_weights are pytorch-fid pt_inception")
     p.add_argument("--fid_n_sample", type=int, default=2500)
     p.add_argument("--fid_batch", type=int, default=6)
-    p.add_argument("--profile", action="store_true")
+    p.add_argument("--profile", action="store_true", help="torch.profiler trace of the first steps into <run_dir>/trace")
     p.add_argument("--profile_iters", type=int, default=5)
-    p.add_argument("--monitor", action="store_true")
-    p.add_argument("--coordinator", type=str, default=None)
+    p.add_argument("--monitor", action="store_true", help="background device-memory / RSS monitor to gpumon.jsonl")
+    p.add_argument("--coordinator", type=str, default=None,
+                   help="host:port of process 0 for a data-parallel run (torch.distributed over tcp://)")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     return p

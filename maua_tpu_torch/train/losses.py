@@ -47,20 +47,23 @@ def g_path_length_regularization(
     mean_path_length: torch.Tensor,
     noise_img: torch.Tensor,
     decay: float = 0.01,
+    gather: Callable[[torch.Tensor], torch.Tensor] = lambda t: t,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Perceptual path length regularizer.
 
     g_apply: W+ latents [B, n_latent, D] -> image. `latents` must be part of
     the graph (a W+ mapped from z with gradients on, or a leaf that requires
     grad). `noise_img` is the unit normal draw of the image's shape; it is
-    divided by sqrt(H*W) here. Returns (penalty, updated mean (detached),
-    path_lengths)."""
+    divided by sqrt(H*W) here. The running mean moves toward the mean of
+    `gather(path_lengths)` (a data-parallel step passes the differentiable
+    all-gather, so it is the global batch's mean). Returns (penalty, updated
+    mean (detached), path_lengths)."""
     img = g_apply(latents)
     h, w = img.shape[-2:]
     proj = (img * (noise_img / math.sqrt(h * w))).sum()
     (grad,) = torch.autograd.grad(proj, latents, create_graph=True)
     path_lengths = grad.square().sum(dim=2).mean(dim=1).sqrt()
-    path_mean = mean_path_length + decay * (path_lengths.mean() - mean_path_length)
+    path_mean = mean_path_length + decay * (gather(path_lengths).mean() - mean_path_length)
     penalty = (path_lengths - path_mean).square().mean()
     path_mean = torch.where(torch.isnan(path_mean), mean_path_length, path_mean)
     penalty = torch.where(torch.isnan(penalty), torch.zeros_like(penalty), penalty)

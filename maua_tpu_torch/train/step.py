@@ -29,6 +29,19 @@ state holds the modules and optimizers and the phases update it in place:
 * Each phase holds TF32 off (`tf32(False, False)`) over its forward and its
   backward: cuDNN's default would run the backward convs in TF32.
 
+Data parallelism: when a torch.distributed process group is open (the train
+CLI's `--coordinator`), `cfg.batch_size` is the global batch and each rank
+holds a contiguous block of it (the loader's, and its block of every draw:
+`draw_step` draws the global batch's variates from the same generator on
+every rank, and the step keeps this rank's rows). Gradients are averaged over
+the ranks before each optimizer step, which is the gradient of the loss over
+the global batch. The minibatch stddev of D groups over the global batch (an
+all-gather of the features that is differentiable to any order, R1's double
+backward included), the path-length mean is the global mean, ADA's sign
+counts are summed over the ranks, and the logged losses are averaged. EMA and
+lookahead run on every rank on the same weights. `reg_chunks > 1` and the
+contrastive regularizer are single-process.
+
 Exact options: gradient accumulation over `num_accumulate` microbatches,
 `reg_chunks` for R1 (sequential strided chunks, guarded so that a chunk keeps
 whole minibatch-stddev groups) and `remat_synth` (activation checkpointing of
@@ -47,12 +60,14 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from ..models import Discriminator, Generator, channel_map
 from ..models.blocks import tf32
 from ..models.stylegan2 import noise_shapes
+from ..parallel import all_reduce_mean_, all_reduce_mean_tree, all_reduce_sum, gather_batch, tree_rows
 from .augment import AugmentDraw, ada_adjust_p, augment, draw_augment
 from .contrastive import (
     ContrastiveState,
@@ -73,6 +88,7 @@ __all__ = [
     "TrainState",
     "draw_step",
     "init_train_state",
+    "local_draws",
     "make_train_config",
     "make_train_phases",
     "make_train_step",
@@ -196,6 +212,7 @@ def init_train_state(cfg: TrainConfig, seed: int = 0, device: DeviceLike = None)
             size=cfg.size, channel_multiplier=cfg.channel_multiplier, channel_max=cfg.channel_max, dtype=dtype
         )
     g, d = g.to(device).train(), d.to(device).train()
+    d.cross_rank_stddev = dist.is_initialized()  # the stddev statistic over the global batch
     g_ema = copy.deepcopy(g).requires_grad_(False).eval()
     cl_head = cl_state = None
     if cfg.contrastive_weight > 0:
@@ -318,6 +335,20 @@ def draw_step(cfg: TrainConfig, step: int, generator: torch.Generator, device: D
     return draws
 
 
+def local_draws(draws: StepDraws) -> StepDraws:
+    """This rank's rows of every draw of a step: a contiguous block of the
+    batch axis, the last axis of an augmentation variate ([B] or [n, B])."""
+
+    def mix(d: MixDraw) -> MixDraw:
+        fields = {k: tree_rows(getattr(d, k)) for k in ("z1", "z2", "mix", "inject", "noise")}
+        fields["aug"] = tuple(tree_rows(a, axis=-1) for a in d.aug)
+        if isinstance(d, PathDraw):
+            return PathDraw(**fields, img_noise=tree_rows(d.img_noise))
+        return MixDraw(**fields)
+
+    return StepDraws(d=[mix(x) for x in draws.d], g=[mix(x) for x in draws.g], path=[mix(x) for x in draws.path])
+
+
 def mixed_wplus(g: Generator, draw: MixDraw) -> torch.Tensor:
     """Per-sample style-mixed W+ [B, n_latent, D]: layers from the inject
     index on take w2, the others w1; an unmixed sample takes w1 throughout
@@ -343,6 +374,9 @@ def _add_grads(params: list[torch.Tensor], loss: torch.Tensor, acc: Optional[lis
 
 
 def _apply(optim: torch.optim.Optimizer, params: list[torch.Tensor], grads: list[torch.Tensor]) -> None:
+    """Average the gradients over the ranks (in place; a no-op in one
+    process) and step the optimizer with them."""
+    all_reduce_mean_(grads)
     for p, gr in zip(params, grads):
         p.grad = gr
     optim.step()
@@ -365,6 +399,8 @@ def make_train_phases(cfg: TrainConfig) -> dict[str, Callable[..., Any]]:
     n_acc = cfg.num_accumulate
     if cfg.batch_size % reg_k != 0:
         raise ValueError(f"reg_chunks ({reg_k}) must divide batch_size ({cfg.batch_size})")
+    if dist.is_initialized() and (reg_k > 1 or cfg.contrastive_weight > 0):
+        raise ValueError("reg_chunks > 1 and the contrastive regularizer are single-process only")
     aug_kw = dict(fast_warp=cfg.ada_fast_warp, warp_method=cfg.ada_warp_method, fft_taper=cfg.ada_fft_taper,
                   fft_taper_conditional=cfg.ada_fft_taper_conditional)
     adt = torch.bfloat16 if cfg.bf16 else torch.float32  # augment in D's compute dtype
@@ -433,6 +469,7 @@ def make_train_phases(cfg: TrainConfig) -> dict[str, Callable[..., Any]]:
                 loss, mb_aux, cl_state = d_microbatch(state, real, draw, cl_state)
                 grads = _add_grads(params, loss / n_acc, grads)
                 aux = mb_aux if aux is None else {k: aux[k] + v for k, v in mb_aux.items()}
+        aux["sign_sum"], aux["n_pred"] = all_reduce_sum(aux["sign_sum"]), all_reduce_sum(aux["n_pred"])
         _apply(state.d_optim, params, grads)
         if cfg.contrastive_momentum > 0:
             momentum_update(cl_state, state.d, cfg.contrastive_momentum)
@@ -504,7 +541,7 @@ def make_train_phases(cfg: TrainConfig) -> dict[str, Callable[..., Any]]:
                 # gradient reaches the mapping layers through it
                 wplus = mixed_wplus(g, draw)
                 penalty, mpl, _ = g_path_length_regularization(
-                    lambda w: synth(g, w, draw.noise), wplus, mpl, draw.img_noise
+                    lambda w: synth(g, w, draw.noise), wplus, mpl, draw.img_noise, gather=gather_batch
                 )
                 loss = cfg.path_regularize * cfg.g_reg_every * penalty / (n_acc * reg_k)
                 grads = _add_grads(params, loss, grads)
@@ -545,6 +582,8 @@ def make_train_step(cfg: TrainConfig):
 
     def train_step(state: TrainState, real_imgs: torch.Tensor, draws: StepDraws) -> dict[str, torch.Tensor]:
         real_imgs = prepare_reals(real_imgs)
+        if dist.is_initialized():
+            draws = local_draws(draws)
         zero = torch.zeros((), device=real_imgs.device)
         d_aux, _ = phases["d"](state, real_imgs, draws.d)
         r1_val = phases["r1"](state, real_imgs)[0] if r1_due(cfg, state.step) else zero
@@ -558,13 +597,16 @@ def make_train_step(cfg: TrainConfig):
             path_pen = zero
         phases["tail"](state)
         n_acc = cfg.num_accumulate
-        return {
+        losses = all_reduce_mean_tree({
             "Generator": g_loss / n_acc,
             "Discriminator": d_aux["d_loss"] / n_acc,
             "Real Score": d_aux["real_score"] / n_acc,
             "Fake Score": d_aux["fake_score"] / n_acc,
             "R1 Penalty": r1_val / n_acc,
             "Path Length Regularization": path_pen / n_acc,
+        })
+        return {
+            **losses,
             "Rt": r_t,
             "Augment": state.ada_p,
             "Mean Path Length": state.mean_path_length,

@@ -1,4 +1,5 @@
-"""maua_tpu_torch's data pipeline, checkpoints and train CLI, on the CPU.
+"""maua_tpu_torch's data pipeline and checkpoints, on the CPU (the train CLI
+is in test_torch_port_train_cli.py, on this file's shards).
 
 Against the JAX package: MREC shards (raw and JPEG) written by one package
 are read by the other and are byte-identical when both write the same
@@ -7,14 +8,11 @@ decode the same images; one-worker loaders give the same batches and flips.
 `prepare_data` writes shards byte-equal to the JAX package's from a folder
 of PNGs. Within the port: a checkpoint round trip whose `g_ema` renders
 through `load_generator` (and one of the ADA and contrastive state, and a
-checkpoint written before ADA was ported), resuming from a rosinality {g,
-d, g_ema} `.pt`, and the CLI (two steps at 16^2 on the CPU with and without
-ADA, with bCR and the contrastive regularizer; the flags of work not ported
-yet refuse; without a card and without --device cpu it raises).
+checkpoint written before ADA was ported) and resuming from a rosinality
+{g, d, g_ema} `.pt`.
 """
 
 import filecmp
-import json
 import os
 
 import numpy as np
@@ -37,7 +35,6 @@ from maua_tpu_torch.train import (
     restore_checkpoint,
     save_checkpoint,
 )
-from maua_tpu_torch.train.cli import build_parser, main, train_loop
 
 SIDE = 8
 
@@ -280,77 +277,3 @@ def test_load_rosinality_training_checkpoint(tmp_path):
     torch.testing.assert_close(mapped.d.final_conv[0].weight, other.d.final_conv[0].weight, rtol=0, atol=0)
 
 
-def _cli_args(shards, run_dir, *extra):
-    return ["--path", shards, "--size", "16", "--batch_size", "4", "--channel_max", "32", "--device", "cpu",
-            "--run_dir", run_dir, "--num_workers", "2", "--log_every", "1", "--img_every", "0", *extra]
-
-
-def test_cli_trains_two_steps_and_resumes(shards, tmp_path):
-    """`--no-augment`: two steps write two metrics lines with the JAX names and
-    a checkpoint; --resume goes on from it to step 3."""
-    run = str(tmp_path / "run")
-    assert main(_cli_args(shards, run, "--no-augment", "--iter", "2", "--d_reg_every", "1", "--g_reg_every", "1")) == 0
-    lines = [json.loads(x) for x in open(os.path.join(run, "metrics.jsonl"))]
-    assert [x["step"] for x in lines] == [0, 1]
-    for x in lines:
-        for k in ("Generator", "Discriminator", "Real Score", "Fake Score", "R1 Penalty",
-                  "Path Length Regularization", "Rt", "Augment", "Mean Path Length", "sec_per_iter"):
-            assert np.isfinite(x[k]), k
-        assert x["R1 Penalty"] > 0 and x["Path Length Regularization"] > 0
-        assert x["fused_bias_act launches"] == x["fused_bias_act_grad launches"] == 0  # the CPU runs the plain forms
-    assert os.listdir(run).count("step_0000002.pt") == 1
-    state = train_loop(build_parser().parse_args(_cli_args(shards, run, "--no-augment", "--iter", "3", "--resume")))
-    assert state.step == 3
-    assert [json.loads(x)["step"] for x in open(os.path.join(run, "metrics.jsonl"))] == [0, 1, 2]
-
-
-def test_cli_refuses_unported_work(shards, tmp_path):
-    """Wandb, spectral norms, the monitor, the trace capture and multi-host
-    flags refuse (ADA, bCR and contrastive run, tested below; --eval_every
-    runs, tests/test_torch_port_eval.py)."""
-    run = str(tmp_path / "run")
-    for flag in (["--wandb"], ["--log_spec_norm"], ["--monitor"], ["--profile"],
-                 ["--num_processes", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP|metrics.jsonl"):
-            main(_cli_args(shards, run, "--iter", "1", *flag))
-    assert not os.path.exists(os.path.join(run, "metrics.jsonl"))
-
-
-def test_cli_trains_with_ada_bcr_and_contrastive(shards, tmp_path, monkeypatch):
-    """The JAX CLI's default (ADA on, adaptive p) for two steps, and bCR +
-    contrastive + MoCo (queue 8) for one: finite metrics, ADA's counts
-    logged, the resolved warp the CPU's (None, i.e. conv), and a resume
-    that carries p, the counts, the head and the queue. Without --device
-    cpu and without a card the CLI raises RuntimeError."""
-    run = str(tmp_path / "ada")
-    state = train_loop(build_parser().parse_args(_cli_args(shards, run, "--iter", "2")))
-    lines = [json.loads(x) for x in open(os.path.join(run, "metrics.jsonl"))]
-    assert [x["step"] for x in lines] == [0, 1] and all(x["n_pred"] == 4 for x in lines)
-    assert all(np.isfinite(v) for x in lines for v in x.values())
-    assert state.ada_n.item() == 8 and state.ada_p.item() == 0.0  # below the 256-prediction threshold
-
-    run = str(tmp_path / "cl")
-    flags = ["--balanced_consistency", "1", "--contrastive", "0.1", "--contrastive_momentum", "0.99",
-             "--contrastive_queue", "8"]
-    state = train_loop(build_parser().parse_args(_cli_args(shards, run, "--iter", "1", *flags)))
-    assert int(state.cl_state.queue_filled) == 8 and state.cl_head is not None
-    resumed = train_loop(build_parser().parse_args(_cli_args(shards, run, "--iter", "1", "--resume", *flags)))
-    assert resumed.step == 1
-    torch.testing.assert_close(resumed.cl_state.queue, state.cl_state.queue, rtol=0, atol=0)
-    torch.testing.assert_close(resumed.cl_head.w1, state.cl_head.w1, rtol=0, atol=0)
-    torch.testing.assert_close(resumed.ada_n, state.ada_n, rtol=0, atol=0)
-
-    import io
-    from contextlib import redirect_stdout
-
-    buf = io.StringIO()
-    with redirect_stdout(buf):
-        train_loop(build_parser().parse_args(_cli_args(shards, run, "--print_config", "--ada_fft_taper", "0")))
-    cfg = json.loads(buf.getvalue())
-    assert cfg["augment"] and cfg["ada_warp_method"] is None and cfg["ada_fft_taper"] is None
-    assert not cfg["ada_fast_warp"] and cfg["ada_fft_taper_conditional"]
-
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    args = [a for a in _cli_args(shards, str(tmp_path / "nocard"), "--iter", "1") if a not in ("--device", "cpu")]
-    with pytest.raises(RuntimeError, match="CUDA"):
-        main(args)

@@ -1,15 +1,15 @@
-"""maua_tpu_torch.eval against maua_tpu.eval on the CPU: InceptionV3 in both
-variants at 299^2 (batch 2) and the bilinear resizes, the FID / PRDC math,
+"""maua_tpu_torch.eval against maua_tpu.eval on the CPU: the bilinear
+resizes, the FID / PRDC math,
 fid() with the reference's truncation protocol, ppl() with one shared
 deterministic sampler and the end-to-end PPL of a generator, SWD, vae_fid
-and the weights fingerprint. The CLIs are in test_torch_port_eval_cli.py.
+and the weights fingerprint. InceptionV3 is in test_torch_port_inception.py,
+the CLIs are in test_torch_port_eval_cli.py.
 
 The weights are fabricated from numpy seeds in torchvision's layout (He
 normal convs, batch-norm statistics near identity), so the features stay
 alive through the 94 convs; both packages load the same state dict.
 
-Tolerances: Inception features 1e-4 of their largest value (94 fp32 convs
-in two libraries); resizes 1e-6 (each output is a short weighted sum of
+Tolerances: resizes 1e-6 (each output is a short weighted sum of
 inputs in [-1, 1], against the float64 evaluation of JAX's weights); FID / PRDC /
 SWD from equal features 1e-9 relative (float64 numpy on both sides); ppl()
 with one shared sampler 1e-5 relative at eps 1e-2 and 1e-3 at eps 1e-4; the
@@ -28,12 +28,10 @@ import maua_tpu_torch.eval.cli as tcli
 import maua_tpu_torch.eval.metrics as tmetrics
 import maua_tpu_torch.eval.swd as tswd
 from jax._src.image.scale import _fill_triangle_kernel, compute_weight_mat
-from maua_tpu.eval.inception import InceptionV3 as JaxInception
-from maua_tpu.eval.inception import inception_variables_from_torch
 from maua_tpu.io import load_generator as jax_load_generator
 from maua_tpu.models import Generator as JaxGenerator
 from maua_tpu_torch.eval import InceptionV3
-from maua_tpu_torch.io import generator_state_dict_from_jax, inception_state_dict_from_jax, load_generator
+from maua_tpu_torch.io import generator_state_dict_from_jax, load_generator
 from maua_tpu_torch.ops.resize import resize_bilinear
 from test_torch_port_inference import Replay
 
@@ -77,33 +75,6 @@ def ckpt(tmp_path_factory):
     p = tmp_path_factory.mktemp("ckpt") / "g32.pt"
     torch.save({"g_ema": generator_state_dict_from_jax(params, buffers)}, str(p))
     return str(p)
-
-
-# ---------------------------------------------------------------- Inception
-@pytest.mark.parametrize("fid_variant", [False, True])
-def test_inception_matches_jax(fid_variant):
-    """pool3 features of two 299^2 images in both variants (the A / C / E
-    pools count or exclude the padding; Mixed_7c's pool is a max pool in
-    pytorch-fid's), and inception_state_dict_from_jax maps the JAX tree back
-    onto the same state dict."""
-    sd = inception_sd()
-    jv = inception_variables_from_torch(sd)
-    x = np.tanh(np.random.default_rng(1).standard_normal((2, 3, 299, 299))).astype(np.float32)
-    want = np.asarray(jax.jit(JaxInception(fid_variant=fid_variant).apply)(jv, jnp.asarray(x)))
-    net = InceptionV3(fid_variant=fid_variant).load(sd).eval()
-    with torch.no_grad():
-        got = net(torch.from_numpy(x))
-    scale = float(np.abs(want).max())
-    assert scale > 1e-2, "features collapsed"
-    close(got / scale, want / scale, 1e-4)
-
-    back = inception_state_dict_from_jax(jv["params"])
-    own = {k for k in net.state_dict() if not k.endswith("num_batches_tracked")}
-    assert set(back) == own
-    for k in back:
-        np.testing.assert_array_equal(back[k].numpy(), sd[k])
-    with pytest.raises(KeyError, match="missing"):
-        InceptionV3().load({k: v for k, v in sd.items() if not k.startswith("Mixed_7c")})
 
 
 @pytest.mark.parametrize("src,dst", [(256, 299), (1024, 299), (1024, 256), (1024, 64), (64, 32)])

@@ -104,6 +104,16 @@ def test_eval_cli_subcommands(weights, ckpt, shards, tmp_path, capsys):
     assert np.isfinite(out["ppl"])
 
 
+def test_eval_cli_ppl_refuses_fast(ckpt, capsys):
+    """ppl runs exact only: under --precision fast it raises before loading
+    anything, and its --help says so."""
+    with pytest.raises(ValueError, match="exact only"):
+        tcli.main(["ppl", "--ckpt", ckpt, "--n_sample", "2", "--batch", "2", "--device", "cpu", "--precision", "fast"])
+    with pytest.raises(SystemExit):
+        tcli.main(["ppl", "--help"])
+    assert "exact only" in capsys.readouterr().out
+
+
 def test_eval_cli_without_a_card_needs_cpu(ckpt):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device resolves")

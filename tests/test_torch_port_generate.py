@@ -241,8 +241,9 @@ def test_generate_without_a_card_needs_cpu(ckpt, wav, tmp_path):
 
 def test_generate_refuses_stylegan1_and_mesh(ckpt, wav):
     """stylegan1=True runs (tests/test_torch_port_stylegan1.py) but refuses a
-    StyleGAN2 checkpoint; mesh= is not ported."""
+    StyleGAN2 checkpoint; mesh= runs (tests/test_torch_port_parallel.py) but
+    refuses a mesh that does not start with the render device."""
     with pytest.raises(ValueError, match="StyleGAN1"):
         tpipe.generate(ckpt, wav, stylegan1=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tpipe.generate(ckpt, wav, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="mesh"):
+        tpipe.generate(ckpt, wav, mesh=["meta", "cpu"], device="cpu")

@@ -1,5 +1,5 @@
-"""maua_tpu_torch's inference tools against maua_tpu's on the CPU: LPIPS
-(vgg and alex, the same numpy weights), the projector's helpers and three
+"""maua_tpu_torch's inference tools against maua_tpu's on the CPU (LPIPS is
+in test_torch_port_lpips.py): the projector's helpers and three
 projection steps fed the JAX package's draws, sample(), the latent
 selection sampler and generate_and_select(), the picker's HTTP round trip,
 the segmented noise, the manipulation bends and a whole interpolation video.
@@ -32,15 +32,13 @@ import maua_tpu_torch.pipeline.interpolate as tinterp
 import maua_tpu_torch.pipeline.projector as tproj
 import maua_tpu_torch.pipeline.select_latents as tsel
 import maua_tpu_torch.render.frames as torch_frames
-from maua_tpu.eval.lpips import LPIPS as JaxLPIPS
-from maua_tpu.eval.lpips import lpips_variables_from_torch
 from maua_tpu.io import load_generator as jax_load_generator
 from maua_tpu.models import Generator as JaxGenerator
 from maua_tpu.models import noise_shapes
 from maua_tpu.pipeline.sample import sample as jax_sample
 from maua_tpu_torch.draws import Draws
-from maua_tpu_torch.eval import LPIPS, make_perceptual_loss, perceptual_lpips
-from maua_tpu_torch.io import generator_state_dict_from_jax, load_generator, lpips_state_dict_from_jax
+from maua_tpu_torch.eval import LPIPS
+from maua_tpu_torch.io import generator_state_dict_from_jax, load_generator
 from maua_tpu_torch.pipeline.sample import sample
 from maua_tpu_torch.reactive import Bend
 
@@ -133,31 +131,6 @@ def heads(net: str, seed: int = 1) -> dict:
     rng = np.random.default_rng(seed)
     return {f"lin{i}.model.1.weight": (rng.random((1, c, 1, 1)) - 0.2).astype(np.float32)
             for i, c in enumerate([64, 128, 256, 512, 512] if net == "vgg" else [64, 192, 384, 256, 256])}
-
-
-@pytest.mark.parametrize("net", ["vgg", "alex"])
-def test_lpips_matches_jax(net):
-    """The same backbone and heads (some negative, clamped to 0) in both
-    packages; distances within 1e-5. `make_perceptual_loss` is the mean of
-    `perceptual_lpips` (heads at ones), and the JAX parameter tree maps back
-    through lpips_state_dict_from_jax."""
-    backbone, lin = torchvision_features(net), heads(net)
-    jv = lpips_variables_from_torch(backbone, lin, net)
-    rng = np.random.default_rng(2)
-    x, y = (np.tanh(rng.standard_normal((2, 3, 64, 64))).astype(np.float32) for _ in range(2))
-    want = np.asarray(JaxLPIPS(net=net).apply(jv, jnp.asarray(x), jnp.asarray(y)))
-    got = LPIPS(net).load(backbone, lin)(torch.from_numpy(x), torch.from_numpy(y))
-    close(got, want, 1e-5)
-    assert (want > 0).all()
-
-    again = LPIPS(net).load(lpips_state_dict_from_jax(jv["params"], net), lpips_state_dict_from_jax(jv["params"], net))
-    close(again(torch.from_numpy(x), torch.from_numpy(y)), want, 1e-5)
-
-    ones = {f"lin{i}": np.ones(np.shape(v), np.float32) for i, v in enumerate(jv["params"][f"lin{i}"] for i in range(5))}
-    want_pl = np.asarray(JaxLPIPS(net=net).apply({"params": {**jv["params"], **ones}}, jnp.asarray(x), jnp.asarray(y)))
-    pl = make_perceptual_loss(backbone, net=net, device="cpu")
-    close(pl(torch.from_numpy(x), torch.from_numpy(y)), want_pl.mean(), 1e-5)
-    close(perceptual_lpips(backbone, net=net, device="cpu")(torch.from_numpy(x), torch.from_numpy(x)), np.zeros(2), 1e-6)
 
 
 # ---------------------------------------------------------------- projector

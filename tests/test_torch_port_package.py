@@ -1,7 +1,7 @@
 """maua_tpu_torch stands alone and fails loudly without a card: importing
-every module (the training, data, audio, reactive, pipeline and eval
-subpackages, StyleGAN1, the TF-pickle reader and the example plugins
-included) pulls in no jax,
+every module (the training, data, audio, reactive, pipeline, eval, telemetry
+and parallel subpackages, the VAE family, StyleGAN1, the TF-pickle reader and
+the example plugins included) pulls in no jax,
 flax or maua_tpu; the entry points raise RuntimeError when they would need
 CUDA and there is none; chip_smoke.py fails without a card and outside the
 repo."""
@@ -49,7 +49,7 @@ def test_package_imports_no_jax_or_maua_tpu():
     )
     assert out.returncode == 0, out.stderr
     n_modules, names, bad = out.stdout.strip().split(" ", 2)
-    assert int(n_modules) >= 66
+    assert int(n_modules) >= 79
     for sub in ("train.step", "train.cli", "train.checkpoint", "train.augment", "train.fft_warp", "train.contrastive",
                 "ops.gather", "data.prepare", "data.loader", "data.records", "data.synthetic",
                 "audio.postprocess", "audio.dsp", "audio.hpss", "audio.onsets", "audio.chroma", "audio.features",
@@ -57,7 +57,9 @@ def test_package_imports_no_jax_or_maua_tpu():
                 "pipeline.defaults", "pipeline.generate", "pipeline.cli", "examples.tauceti", "examples.kelp",
                 "pipeline.sample", "pipeline.select_latents", "pipeline.interpolate", "pipeline.projector",
                 "models.stylegan1", "io.tf_pkl", "ops.resize", "draws", "eval.lpips", "eval.inception",
-                "eval.metrics", "eval.swd", "eval.cli"):
+                "eval.metrics", "eval.swd", "eval.cli", "telemetry", "telemetry.spectral", "telemetry.memory",
+                "telemetry.monitor", "telemetry.profiling", "parallel", "parallel.mesh", "models.autoencoder",
+                "train.vae", "train.vae_cli", "data.prepare_vae_codes", "examples.temper", "examples.rewrite_demo"):
         assert f"maua_tpu_torch.{sub}" in names.split(","), sub
     assert bad == "[]", f"maua_tpu_torch imported {bad}"
 

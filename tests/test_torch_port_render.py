@@ -104,7 +104,7 @@ def test_render_matches_jax(checkpoint, monkeypatch, tmp_path):
 def test_render_refuses_mesh_and_wrong_device(checkpoint, tmp_path):
     tg = load_generator(checkpoint, device="cpu")
     latents = np.zeros((2, tg.n_latent, 64), np.float32)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        torch_frames.render(tg, None, latents, [], str(tmp_path / "x.mp4"), mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="mesh"):  # mesh= runs (test_torch_port_parallel.py) from the render device
+        torch_frames.render(tg, None, latents, [], str(tmp_path / "x.mp4"), mesh=["meta", "cpu"], device="cpu")
     with pytest.raises(ValueError, match="truncation_latent"):
         torch_frames.render(tg, None, latents, [], str(tmp_path / "x.mp4"), truncation=0.7, device="cpu")

@@ -568,3 +568,23 @@ def test_d_phase_with_contrastive_matches_jax(momentum, queue):
         assert int(st.cl_state.queue_filled) == int(new.cl_state.queue_filled) == 16
         for k, k0, p in zip(st.cl_state.key_d.parameters(), key0, st.d.parameters()):
             torch.testing.assert_close(k, k0 * 0.9 + 0.1 * p, rtol=1e-6, atol=1e-7)
+
+
+def test_cli_wandb_unavailable_trains_on(tmp_path, capsys):
+    """--wandb where wandb is not installed: the JAX CLI's fallback, a
+    `wandb unavailable (...)` line, and training goes on into metrics.jsonl."""
+    import importlib.util
+    import json
+    import os
+
+    from maua_tpu_torch.data.synthetic import write_synth_shards
+    from maua_tpu_torch.train.cli import main
+
+    assert importlib.util.find_spec("wandb") is None
+    write_synth_shards(str(tmp_path / "s"), 16, 8, fmt="raw", seed=1)
+    run = str(tmp_path / "run")
+    assert main(["--path", str(tmp_path / "s"), "--size", "16", "--batch_size", "4", "--channel_max", "8",
+                 "--device", "cpu", "--run_dir", run, "--iter", "2", "--log_every", "1", "--img_every", "0",
+                 "--num_workers", "1", "--no-augment", "--wandb"]) == 0
+    assert "wandb unavailable (" in capsys.readouterr().out
+    assert [json.loads(x)["step"] for x in open(os.path.join(run, "metrics.jsonl"))] == [0, 1]

@@ -9,8 +9,8 @@ the ADA phase, and the path-length phase (penalty, the new running mean and
 G gradients, the mapping network's included, unchunked and in two chunks).
 Within the port: R1 in chunks against R1 unchunked, the G phase with
 `remat_synth` against the G phase without it, a uint8 batch against the same
-batch in fp32, the guards, a whole step with lookahead and EMA, and one step
-of each ADA, bCR and contrastive configuration.
+batch in fp32 and the guards. Whole steps are in
+test_torch_port_train_configs.py.
 """
 
 import copy
@@ -124,33 +124,6 @@ def test_uint8_batch_equals_fp32_batch():
         make_train_step(cfg)(st, torch.from_numpy(u8[..., :2]), _draws(cfg))
 
 
-def test_train_step_runs_every_phase_with_lookahead_and_ema():
-    """Four steps with R1 and the path penalty due at steps 0 and 2
-    (d_reg_every 2, g_reg_every 2, la_steps 2): finite metrics with the JAX
-    names, the step counter, the lookahead sync after the second step (G
-    equal to its slow copy) and the EMA moving towards G. A step whose path
-    penalty is due refuses draws without path draws."""
-    cfg, st = port_state(lookahead=True, la_steps=2, d_reg_every=2, g_reg_every=2)
-    ema0 = [p.clone() for p in st.g_ema.parameters()]
-    step = make_train_step(cfg)
-    gen = torch.Generator().manual_seed(0)
-    for i in range(4):
-        m = step(st, _reals(1, 4, seed=i), draw_step(cfg, st.step, gen, "cpu"))
-        assert all(np.isfinite(float(v)) for v in m.values())
-        assert (float(m["R1 Penalty"]) > 0) == (i % 2 == 0)
-        assert (float(m["Path Length Regularization"]) > 0) == (i % 2 == 0)
-        if i == 1:  # lookahead synced after the second G step
-            for p, s in zip(st.g.parameters(), st.lookahead.slow_g):
-                torch.testing.assert_close(p, s, rtol=0, atol=0)
-    assert st.step == 4 and st.lookahead.step == 4
-    assert set(m) == {"Generator", "Discriminator", "Real Score", "Fake Score", "R1 Penalty",
-                      "Path Length Regularization", "Rt", "Augment", "Mean Path Length", "sign_sum", "n_pred"}
-    moved = [float((e - e0).abs().max()) for e, e0 in zip(st.g_ema.parameters(), ema0)]
-    assert max(moved) > 0
-    with pytest.raises(ValueError, match="path"):
-        step(st, _reals(1, 4), draw_step(cfg, 1, gen, "cpu"))
-
-
 @pytest.mark.parametrize("p,signs,n", [(0.0, 3.0, 4.0), (0.2, 4.0, 300.0), (0.2, -100.0, 300.0)])
 def test_ada_phase_matches_jax(p, signs, n):
     """Adaptive p between R1 and G: the D phase's sign sum and count added to
@@ -170,34 +143,6 @@ def test_ada_phase_matches_jax(p, signs, n):
     cfg_fixed, st_fixed = port_state(augment=True, augment_p=0.5)
     assert float(make_train_phases(cfg_fixed)["ada"](st_fixed, {k: torch.tensor(v) for k, v in aux.items()})) == 0.0
     assert float(st_fixed.ada_p) == 0.5
-
-
-@pytest.mark.parametrize("over", [
-    dict(augment=True),
-    pytest.param(dict(augment=True, augment_p=0.3, ada_warp_method="fft", bf16=True), marks=pytest.mark.slow),
-    pytest.param(dict(augment=True, augment_p=0.3, ada_fast_warp=True), marks=pytest.mark.slow),
-    dict(bcr_weight=1.0),
-    dict(contrastive_weight=0.1, contrastive_momentum=0.99, contrastive_queue=8),
-    pytest.param(dict(contrastive_weight=0.1, contrastive_loss_type="nt_xent", contrastive_bilinear=True),
-                 marks=pytest.mark.slow),
-])
-def test_ada_bcr_contrastive_configs_step_on_the_cpu(over):
-    """Each configuration builds and takes a step with R1 and the path
-    penalty on the CPU: finite metrics with the JAX names plus ADA's counts,
-    and the head (when there is one) moved by D's optimizer, which R1 steps
-    too. bCR and the contrastive regularizer turn augmentation on."""
-    cfg, st = port_state(d_reg_every=1, g_reg_every=1, **over)
-    assert cfg.augment
-    head0 = None if st.cl_head is None else st.cl_head.w1.detach().clone()
-    m = make_train_step(cfg)(st, _reals(1, 4), _draws(cfg))
-    assert all(np.isfinite(float(v)) for v in m.values())
-    assert float(m["R1 Penalty"]) > 0 and float(m["n_pred"]) == 4.0
-    assert float(m["Augment"]) == np.float32(cfg.augment_p)
-    if head0 is not None:
-        assert float((st.cl_head.w1.detach() - head0).abs().max()) > 0
-        assert st.d_optim.state[st.cl_head.w1]["step"] == 2  # the D phase and R1
-    if cfg.contrastive_queue:
-        assert int(st.cl_state.queue_filled) == 8 and int(st.cl_state.queue_ptr) == 0
 
 
 def test_unported_options_raise():
