@@ -108,7 +108,22 @@ Phases, each printing JSON lines:
      size 1 over NCCL (--coordinator) against no coordinator, 4 steps at
      256^2, and render(mesh=[cuda:0]) against render() at 1024^2;
  19. generate() with the temper and rewrite_demo plugins at 1024^2 for 2 s
-     (`plugins`), the forward kernel's launches counted.
+     (`plugins`), the forward kernel's launches counted;
+ 20. the lucidrains family, card against CPU (`lucidrains_card_vs_cpu`): a
+     narrow model (32^2, capacity 4, attention and fq at layer 1) with the
+     same weights and draws: G and D forwards, then three steps (the
+     gradient and path penalties, the EMA, the reset): metrics, gradients,
+     the weights after DiffGrad and the EMA copies;
+ 21. the lucidrains trainer at the JAX config's full width
+     (`lucidrains_main_path`): LucidrainsTrainer at 128^2, latent 512, style
+     depth 8, capacity 16, batch 4, 33 steps with the defaults and with
+     attention and fq at layer 1 (no kernel launch, counted); s/step by kind,
+     images/s, peak memory, a save / load round trip, generate(n=8);
+ 22. tensor-parallel synthesis on the card (`tp_on_card`): the FFHQ-1024
+     generator under shard_generator_params on a (1, 1) mesh over NCCL at
+     world size 1, frames against the unsharded generator's at batch 8, the
+     forward kernel's 8 + 17 launches counted, time with and without the
+     sharding.
 The line before the last lists both kernels (`kernels`, with their launches
 in the VAE trainer's run of phase 16 and times summed over one fp32 VAE step;
 `kernels_train` keeps the fp32 ADA run's numbers of earlier slices); the
@@ -164,10 +179,16 @@ def cuda_ms(fn, runs: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def graph_ms(fn, reps: int = 10, runs: int = 25) -> float:
+def graph_ms(fn, reps: int = 10, runs: int = 25, sleep_cycles: int = 1_000_000) -> float:
     """Median device time of one fn() in ms: `reps` back-to-back calls are
     captured in a CUDA graph and replayed, so no host launch latency sits
-    between them (eager timing of a small kernel measures the host instead)."""
+    between them (eager timing of a small kernel measures the host instead).
+    Before each replay the card sleeps `sleep_cycles` clock cycles (about
+    0.5 ms), so that the host has enqueued the start event, the replay and
+    the end event before the card reaches them: on a busy host the submission
+    of a replay of a few microseconds of work takes longer than the work, and
+    the events would time the host. sleep_cycles=0 leaves the sleep out and
+    times the replays back to back (cuda_ms)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -178,7 +199,20 @@ def graph_ms(fn, reps: int = 10, runs: int = 25) -> float:
     with torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
-    return cuda_ms(graph.replay, runs) / reps
+    if not sleep_cycles:
+        return cuda_ms(graph.replay, runs) / reps
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep_cycles)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times) / reps
 
 
 # ---------------------------------------------------------------- phase 2
@@ -648,6 +682,8 @@ def phase_kernels_train(shapes: dict) -> dict:
 
 def to(obj, device):
     """A draw (tensors, lists, named tuples, dataclasses of them) on `device`."""
+    if obj is None:
+        return None
     if isinstance(obj, torch.Tensor):
         return obj.to(device)
     if isinstance(obj, tuple) and hasattr(obj, "_fields"):
@@ -2430,6 +2466,223 @@ def phase_plugins(tmp: str) -> dict:
     return results
 
 
+# ---------------------------------------------------------------- phases 20-22: lucidrains, tensor parallelism
+LUC_STEPS = 33  # steps 0, 4, ... 32 take the gradient penalty, steps 0 and 32 the path penalty
+
+
+def luc_state_on(cfg, device: str, like=None):
+    """A lucidrains train state on `device`; with `like`, its whole state
+    (weights, EMA copies, optimizer moments, pl_mean, step) copied over."""
+    from maua_tpu_torch.train import init_lucidrains_state
+
+    st = init_lucidrains_state(cfg, seed=5, device=device)
+    if like is not None:
+        st.load_state_dict(like.state_dict())
+    return st
+
+
+def phase_lucidrains_card_vs_cpu() -> dict:
+    """The lucidrains family, card against CPU in exact fp32: a narrow model
+    (32^2, capacity 4, attention and fq at layer 1, batch 4, the Rezero gains
+    set to 0.5) with the same weights and draws. G's and D's forwards within
+    1e-4 of the largest value; three steps (ema_start 0, ema_every 1): step 0
+    with the gradient and path penalties, step 1 the EMA, step 2 the reset.
+    Per step: the metrics within rtol 1e-3, each network's gradients (as its
+    DiffGrad keeps them) within 1e-3 of the largest as one vector, its
+    weights within 1e-5 where the gradient is above 1e-3 of its tensor's
+    largest (DiffGrad steps a near-zero gradient by about lr / 2 either way),
+    the EMA copies within lr + 1e-5."""
+    from maua_tpu_torch.models.lucidrains import LinearAttention, StyleDraw
+    from maua_tpu_torch.train import LucidrainsConfig, make_lucidrains_train_step
+    from maua_tpu_torch.train.lucidrains_trainer import draw_lucidrains_step
+
+    cfg = LucidrainsConfig(image_size=32, latent_dim=64, style_depth=4, network_capacity=4, batch_size=4,
+                           attn_layers=(1,), fq_layers=(1,), ema_start=0, ema_every=1)
+    cpu = luc_state_on(cfg, "cpu")
+    with torch.no_grad():
+        for net in (cpu.g, cpu.d):
+            for m in net.modules():
+                if isinstance(m, LinearAttention):
+                    m.rezero_g.fill_(0.5)
+    card = luc_state_on(cfg, "cuda", like=cpu)
+    rng = np.random.default_rng(20)
+    n_layers = cpu.g.num_layers
+    styles = torch.from_numpy(rng.standard_normal((4, n_layers, 64), dtype=np.float32))
+    noise = torch.from_numpy(rng.uniform(size=(4, 32, 32, 1)).astype(np.float32))
+    real = torch.from_numpy(rng.uniform(-1, 1, (1, 4, 3, 32, 32)).astype(np.float32))
+    with torch.no_grad():
+        fwd = dict(G=rel(card.g(styles.cuda(), noise.cuda()).cpu(), cpu.g(styles, noise)),
+                   D=rel(card.d(real[0].cuda())[0].cpu(), cpu.d(real[0])[0]),
+                   D_quantize=rel(card.d(real[0].cuda())[1].cpu(), cpu.d(real[0])[1]))
+    require(max(fwd.values()) <= 1e-4, f"lucidrains forwards card vs CPU {fwd}")
+    step_fn = make_lucidrains_train_step(cfg)
+    steps = []
+    for step in range(3):
+        draws = draw_lucidrains_step(cfg, step, torch.Generator().manual_seed(30 + step), "cpu")
+        m_cpu = step_fn(cpu, real, draws)
+        m_card = step_fn(card, real.cuda(), to(draws, "cuda"))
+        metrics = {k: abs(float(m_card[k]) - float(m_cpu[k])) / max(abs(float(m_cpu[k])), 1e-6) for k in m_cpu}
+        grads, weights, emas = {}, {}, {}
+        for net, opt in (("s", "g_opt"), ("g", "g_opt"), ("d", "d_opt")):
+            pc, pg = list(getattr(cpu, net).parameters()), list(getattr(card, net).parameters())
+            gc = [getattr(cpu, opt).state[p]["prev_grad"] for p in pc]
+            gg = [getattr(card, opt).state[p]["prev_grad"].cpu() for p in pg]
+            grads[net] = rel(torch.cat([g.reshape(-1) for g in gg]), torch.cat([g.reshape(-1) for g in gc]))
+            worst = 0.0
+            for a, b, g in zip(pg, pc, gc):
+                mask = g.abs() > 1e-3 * g.abs().max()
+                if mask.any():
+                    worst = max(worst, float((a.detach().cpu() - b.detach())[mask].abs().max()) / max(float(b.detach().abs().max()), 1.0))
+            weights[net] = worst
+        for net in ("se", "ge"):
+            emas[net] = max(float((a.cpu() - b).abs().max()) for a, b in zip(getattr(card, net).parameters(), getattr(cpu, net).parameters()))
+        steps.append(dict(step=step, metrics_rel=metrics, gradients_rel=grads, weights_masked_rel=weights, ema_abs=emas,
+                          R1=float(m_cpu["R1"]), path_length=float(m_cpu["Path Length"])))
+        require(max(metrics.values()) <= 1e-3 and max(grads.values()) <= 1e-3 and max(weights.values()) <= 1e-5
+                and max(emas.values()) <= cfg.lr + 1e-5, f"lucidrains step {step} card vs CPU: {steps[-1]}")
+    require(steps[0]["R1"] > 0 and steps[0]["path_length"] > 0 and steps[1]["R1"] == 0, "the lazy phases of steps 0 and 1")
+    emit(phase="lucidrains_card_vs_cpu", size=32, capacity=4, batch=4, forward_rel=fwd, steps=steps,
+         tolerance="forwards 1e-4 of the largest; metrics rtol 1e-3; gradients 1e-3 per network; weights 1e-5 where |g| > 1e-3 max")
+    return dict(forward=fwd, steps=steps)
+
+
+def real_pool(n: int, size: int, seed: int) -> torch.Tensor:
+    """n smooth synthetic RGB images [n, 3, size, size] in [-1, 1] on the card."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.linspace(0, 1, size, dtype=np.float32), np.linspace(0, 1, size, dtype=np.float32), indexing="ij")
+    f = rng.uniform(1, 6, (n, 3, 2)).astype(np.float32)
+    ph = rng.uniform(0, 2 * np.pi, (n, 3)).astype(np.float32)
+    img = np.sin(2 * np.pi * (f[..., 0, None, None] * yy + f[..., 1, None, None] * xx) + ph[..., None, None])
+    return torch.from_numpy(img.astype(np.float32)).cuda()
+
+
+def phase_lucidrains_main_path(tmp: str) -> dict:
+    """LucidrainsTrainer at the JAX config's full width (128^2, latent 512,
+    style depth 8, capacity 16, batch 4; lr 2e-4, GP every 4, PL every 32)
+    for 33 steps with the defaults and again with attention and fq at layer
+    1, on a pool of 132 synthetic images on the card. The launch counters are
+    set to 0 just before each run and read just after: this family runs
+    neither kernel (plain leaky ReLUs), so both must stay 0. s/step by kind
+    of step, images/s over steps 1-32, peak memory, finite losses (train()
+    raises otherwise); then a save / load round trip into a new trainer
+    (equal state) and generate(n=8, trunc_psi=0.6)."""
+    from maua_tpu_torch.ops import fused_act
+    from maua_tpu_torch.train import LucidrainsConfig, LucidrainsTrainer
+
+    pool = real_pool(LUC_STEPS * 4, 128, seed=21)
+    results = {}
+    for label, over in (("default", {}), ("attn_fq", dict(attn_layers=(1,), fq_layers=(1,)))):
+        cfg = LucidrainsConfig(**over)
+        tr = LucidrainsTrainer(cfg, models_dir=os.path.join(tmp, "lucidrains"), name=label, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_act.launches = fused_act.grad_launches = 0
+        times, logs = [], []
+        for step in range(LUC_STEPS):
+            t0 = time.perf_counter()
+            logs.append(tr.train(pool[step * 4:(step + 1) * 4][None]))
+            times.append(time.perf_counter() - t0)
+        launches = (fused_act.launches, fused_act.grad_launches)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        require(launches == (0, 0), f"lucidrains {label}: the kernels launched {launches} times; the family runs neither")
+        require(all(math.isfinite(v) for m in logs for v in m.values()), f"lucidrains {label}: a loss is not finite")
+        require(logs[0]["R1"] > 0 and logs[4]["R1"] > 0 and logs[1]["R1"] == 0 and logs[32]["Path Length"] > 0
+                and logs[1]["Path Length"] == 0, f"lucidrains {label}: the lazy phases")
+        kinds: dict = {}
+        for step, t in enumerate(times[1:], start=1):
+            kinds.setdefault("gp_pl" if step % 32 == 0 else ("gp" if step % 4 == 0 else "plain"), []).append(t)
+        path = tr.save(99)
+        other = LucidrainsTrainer(cfg, models_dir=os.path.join(tmp, "lucidrains"), name=label, seed=1, device="cuda")
+        other.load(99)
+        a, b = tr.state.state_dict(), other.state.state_dict()
+        flat_a, flat_b = [], []
+
+        def walk(x, y):
+            if isinstance(x, torch.Tensor):
+                flat_a.append(x)
+                flat_b.append(y)
+            elif isinstance(x, dict):
+                require(set(x) == set(y), "checkpoint keys")
+                for k in x:
+                    walk(x[k], y[k])
+            else:
+                require(x == y, f"checkpoint value {x} != {y}")
+
+        walk(a, b)
+        require(all(torch.equal(x, y) for x, y in zip(flat_a, flat_b)), f"lucidrains {label}: load(save()) differs")
+        t0 = time.perf_counter()
+        imgs = tr.generate(n=8, trunc_psi=0.6)
+        gen_s = time.perf_counter() - t0
+        require(imgs.shape == (8, 3, 128, 128) and np.isfinite(imgs).all(), f"generate {imgs.shape}")
+        results[label] = dict(steps=LUC_STEPS, s_per_step={k: statistics.median(v) for k, v in kinds.items()},
+                              step0_s=times[0], images_per_s=4 * (LUC_STEPS - 1) / sum(times[1:]), peak_memory_gb=peak_gb,
+                              launches=launches, losses_last=logs[-1], checkpoint_bytes=os.path.getsize(path),
+                              checkpoint_tensors=len(flat_a), generate_s=gen_s, generate_std=float(imgs.std()))
+        emit(phase="lucidrains_main_path", config=label, size=128, latent_dim=512, style_depth=8, capacity=16, batch=4,
+             **results[label])
+        del tr, other
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_tp_on_card(tmp: str) -> dict:
+    """Tensor-parallel synthesis on the one card: the FFHQ-1024 checkpoint of
+    phase 4 under shard_generator_params on a (1, 1) mesh over NCCL at world
+    size 1 (the only size one card allows; every StyledConv is sharded, its
+    channels gathered over a model group of one). From the same z (batch 8)
+    and the stored noise, the frames within 1e-4 of the largest value of the
+    unsharded generator's (cuDNN may choose another algorithm between
+    calls), and so with noise drawn from one seed. The counters are set to 0 just before the sharded forward and
+    read just after: 8 (mapping) + 17 (StyledConvs) forward launches, at
+    shapes phase 2 holds. Then the time of a sharded and an unsharded
+    forward, in turns (plain, TP, TP, plain), CUDA events."""
+    import torch.distributed as dist
+
+    from maua_tpu_torch import parallel
+    from maua_tpu_torch.io import load_generator
+    from maua_tpu_torch.ops import fused_act
+
+    gen = load_generator(os.path.join(tmp, f"g{GEN_SIZE}.pt"), device="cuda")
+    z = torch.from_numpy(np.random.default_rng(22).standard_normal((8, STYLE_DIM), dtype=np.float32)).cuda()
+    parallel.maybe_initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    try:
+        mesh = parallel.get_2d_mesh(1, 1)
+        tp = parallel.shard_generator_params(gen, mesh)
+        sharded = sum(1 for p in tp.generator.parameters() if hasattr(p, "to_local"))
+        with torch.inference_mode():
+            want, _ = gen(z, randomize_noise=False)
+            torch.cuda.synchronize()
+            fused_act.launches = fused_act.grad_launches = 0
+            fwd_shapes, _ = record_launch_shapes(lambda: tp(z, randomize_noise=False))
+            launches = (fused_act.launches, fused_act.grad_launches)
+            got, _ = tp(z, randomize_noise=False)
+            err = rel(got, want)
+            per_batch = 2 * (int(math.log2(GEN_SIZE)) - 2) + 1
+            require(launches == (N_MLP + per_batch, 0), f"TP: launches {launches}, derived ({N_MLP} + {per_batch}, 0)")
+            require(tuple(got.shape) == (8, 3, GEN_SIZE, GEN_SIZE) and bool(torch.isfinite(got).all()) and err <= 1e-4,
+                    f"TP frames: {tuple(got.shape)}, {err} of the largest value off the unsharded generator's")
+            require({s for (s, _, _) in fwd_shapes} <= held_shapes(), f"TP launch shapes {sorted(fwd_shapes)}")
+            got_r, _ = tp(z, rng=torch.Generator(device="cuda").manual_seed(23))
+            want_r, _ = gen(z, rng=torch.Generator(device="cuda").manual_seed(23))
+            err_r = rel(got_r, want_r)
+            require(err_r <= 1e-4, f"TP frames with drawn noise: {err_r} of the largest value off the unsharded generator's")
+            times = {"plain": [], "tp": []}
+            for label in ("plain", "tp", "tp", "plain"):
+                fn = (lambda: gen(z, randomize_noise=False)) if label == "plain" else (lambda: tp(z, randomize_noise=False))
+                times[label].append(cuda_ms(fn, runs=5, warmup=1))
+    finally:
+        parallel.shutdown_distributed()
+    require(not dist.is_initialized(), "TP: the process group was left open")
+    ms = {k: statistics.mean(v) for k, v in times.items()}
+    result = dict(mesh=[1, 1], world_size=1, backend="nccl", batch=8, sharded_tensors=sharded, frames_rel_err=err,
+                  drawn_noise_rel_err=err_r, launches=launches[0], expected_launches=N_MLP + per_batch, plain_ms=ms["plain"], tp_ms=ms["tp"],
+                  tp_over_plain=ms["tp"] / ms["plain"], runs_ms=times)
+    emit(phase="tp_on_card", size=GEN_SIZE, **result)
+    del gen, tp
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card", file=sys.stderr)
@@ -2451,34 +2704,45 @@ def main() -> int:
                    if "Used " in line] for name, path in libs.items()}
     emit(phase="build", seconds=time.perf_counter() - t0, libraries=sorted(libs), ptxas=regs)
 
-    per_batch = phase_kernels()
-    phase_functions_on_card()
+    seconds = {}
+
+    def run(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    per_batch = run("kernels", phase_kernels)
+    run("functions_on_card", phase_functions_on_card)
     with tempfile.TemporaryDirectory() as tmp:
-        phase_card_vs_cpu(tmp)
-        results = phase_main_path(tmp)
-        phase_train_card_vs_cpu()
-        train = phase_train_main_path(tmp)
-        phase_augment_card_vs_cpu()
-        aug_times = phase_augment_times()
-        phase_train_ada_card_vs_cpu()
-        ada = phase_train_ada_main_path(tmp)
+        run("card_vs_cpu", phase_card_vs_cpu, tmp)
+        results = run("main_path", phase_main_path, tmp)
+        run("train_card_vs_cpu", phase_train_card_vs_cpu)
+        train = run("train_main_path", phase_train_main_path, tmp)
+        run("augment_card_vs_cpu", phase_augment_card_vs_cpu)
+        aug_times = run("augment_times", phase_augment_times)
+        run("train_ada_card_vs_cpu", phase_train_ada_card_vs_cpu)
+        ada = run("train_ada_main_path", phase_train_ada_main_path, tmp)
         with contextlib.chdir(tmp):  # load_audio's and generate()'s workspace/
-            phase_generate_card_vs_cpu(tmp)
-            gen = phase_generate_main_path(tmp)
-            phase_tools_card_vs_cpu(tmp)
-            tools = phase_tools_main_path(tmp, os.path.join(tmp, "ada_shards"))
-            phase_vae_card_vs_cpu()
-            vae = phase_vae_main_path(tmp)
-            phase_telemetry(tmp, os.path.join(tmp, "ada_shards"))
-            phase_parallel_on_card(tmp, os.path.join(tmp, "ada_shards"))
-            phase_plugins(tmp)
+            run("generate_card_vs_cpu", phase_generate_card_vs_cpu, tmp)
+            gen = run("generate_main_path", phase_generate_main_path, tmp)
+            run("tools_card_vs_cpu", phase_tools_card_vs_cpu, tmp)
+            tools = run("tools_main_path", phase_tools_main_path, tmp, os.path.join(tmp, "ada_shards"))
+            run("vae_card_vs_cpu", phase_vae_card_vs_cpu)
+            vae = run("vae_main_path", phase_vae_main_path, tmp)
+            run("telemetry", phase_telemetry, tmp, os.path.join(tmp, "ada_shards"))
+            run("parallel_on_card", phase_parallel_on_card, tmp, os.path.join(tmp, "ada_shards"))
+            run("plugins", phase_plugins, tmp)
+            run("lucidrains_card_vs_cpu", phase_lucidrains_card_vs_cpu)
+            run("lucidrains_main_path", phase_lucidrains_main_path, tmp)
+            run("tp_on_card", phase_tp_on_card, tmp)
     # the ADA step's launch shapes are the plain step's (the fused D pass,
     # the same G and D): the kernels are timed once, at those shapes
     require(ada["shapes"] == train["shapes"]["fp32_exact"], "an fp32 ADA step launches the kernels at other shapes")
-    per_step = phase_kernels_train(train["shapes"])
-    phase_kernels_generate(gen["shapes"])
-    phase_kernels_tools(tools["shapes"])
-    step_vae = phase_kernels_vae(vae["shapes"])
+    per_step = run("kernels_train", phase_kernels_train, train["shapes"])
+    run("kernels_generate", phase_kernels_generate, gen["shapes"])
+    run("kernels_tools", phase_kernels_tools, tools["shapes"])
+    step_vae = run("kernels_vae", phase_kernels_vae, vae["shapes"])
     for label, dt in (("fp32_exact", "float32"), ("bf16", "bfloat16")):
         prof = ada["profile"][label]
         warp_ms = aug_times[f"fft_{dt}"]["forward_ms"] + aug_times[f"fft_b12_{dt}"]["forward_backward_ms"]
@@ -2515,6 +2779,7 @@ def main() -> int:
             "bound_by": "bytes",
             "library_ms": None,
         })
+    emit(phase="phase_seconds", seconds=seconds, total_s=time.perf_counter() - t0)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                             "count": torch.cuda.device_count()}}), flush=True)

@@ -12,10 +12,12 @@
 // through VMEM. Here the tensor is viewed as [rows, cols] without padding and
 // the bias is never broadcast in memory:
 //   * >= 3-D input [N, C, *spatial]: rows = N*C, cols = prod(spatial), and
-//     the bias is per row, bias[row % C] -- one load per row, no per-element
-//     division;
+//     the bias is per row, bias[row % C];
 //   * 1-D / 2-D input [..., C]: rows = prod(leading), cols = C, and the bias
 //     is per column, bias[col].
+// The kernel walks that plane with one flat index i over rows * cols
+// elements and finds the bias channel as (i / cols) % C or i % cols, once
+// per 16-byte pack.
 //
 // The gradient takes its gate from the sign of the saved output (y >= 0 iff
 // x + b >= 0, as scale > 0 and slope > 0), so the backward needs neither x nor
@@ -33,13 +35,18 @@
 // least time is about 2.5 ms at the H100 SXM's 3.35 TB/s. The design follows
 // from that: one pass, 16-byte vector loads and stores where a row's width and
 // the pointers allow (4 fp32 or 8 bf16 per thread access), scalar accesses
-// otherwise, and a grid-stride loop over both axes so any size fits the grid.
+// otherwise, and a grid-stride loop so any size fits the grid. The index is
+// flat so that every thread of a warp is busy on any row length: one block
+// per row leaves 1-4 threads of a warp busy on the 4x4 and 2x2 maps of a
+// VAE's batch norms, and is no faster on wide rows (probe_fused_bias_act.py
+// on an H100: [8, 32, 1024^2] fp32 0.737 ms against 0.711 ms flat).
 //
 // Types: fp32 or bf16 in and out; arithmetic in fp32 with one rounding on the
 // store. The bias is always fp32. The gradient's gain is slope * scale
 // computed in fp32, as the JAX kernel computes `where(y >= 0, 1, slope) *
-// scale`. Offsets are int64_t: the element count passes 2^31 at 1024^2 in bf16
-// from batch 64.
+// scale`. The forward's index is 32-bit below 2^31 elements and 64-bit from
+// there (the element count reaches 2^31 at 1024^2 in bf16 from batch 64); the
+// gradient's is 64-bit.
 //
 // The C entry points launch on the caller's stream, allocate nothing and
 // return cudaGetLastError() so that the Python wrapper can raise.
@@ -71,31 +78,46 @@ __device__ __forceinline__ float lrelu(float v, float slope, float scale) {
     return (v >= 0.f ? v : v * slope) * scale;
 }
 
-// VEC elements per thread access: 16 / sizeof(T) on the vector path, 1 on the
-// scalar path. The launcher picks VEC > 1 only if cols % VEC == 0 and both
-// pointers are 16-byte aligned, so every row start stays aligned.
-template <typename T, int VEC>
+// The forward: one index over all rows * cols elements. VEC elements per
+// thread access: 16 / sizeof(T) on the vector path, 1 on the scalar path. The
+// launcher picks VEC > 1 only if cols % VEC == 0 and both pointers are 16-byte
+// aligned, so a pack never straddles two rows and takes one bias value with
+// the bias on rows, VEC consecutive ones on columns. I is the index type:
+// uint32_t (a 32-bit division by cols) when rows * cols < 2^31, so that
+// i + step stays below 2^32, else int64_t.
+template <typename T, int VEC, typename I>
 __global__ void __launch_bounds__(256) fused_bias_act_kernel(
     const T* __restrict__ x, const float* __restrict__ bias, T* __restrict__ out,
-    int64_t rows, int64_t cols, int64_t channels, int bias_on_rows, float slope, float scale) {
+    I n, I cols, I channels, int bias_on_rows, float slope, float scale) {
     using P = Pack<T, VEC>;
-    const int64_t col_step = (int64_t)blockDim.x * gridDim.x * VEC;
-    const int64_t col0 = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * VEC;
-    for (int64_t row = blockIdx.y; row < rows; row += gridDim.y) {
-        const float row_bias = (bias != nullptr && bias_on_rows) ? bias[row % channels] : 0.f;
-        const T* xr = x + row * cols;
-        T* yr = out + row * cols;
-        for (int64_t col = col0; col < cols; col += col_step) {
-            const P in = *reinterpret_cast<const P*>(xr + col);
-            P res;
+    const I step = (I)blockDim.x * gridDim.x * VEC;
+    for (I i = ((I)blockIdx.x * blockDim.x + threadIdx.x) * VEC; i < n; i += step) {
+        const P in = *reinterpret_cast<const P*>(x + i);
+        const float row_bias = (bias != nullptr && bias_on_rows) ? bias[(i / cols) % channels] : 0.f;
+        const I col = (bias != nullptr && !bias_on_rows) ? i % cols : 0;
+        P res;
 #pragma unroll
-            for (int k = 0; k < VEC; ++k) {
-                float b = row_bias;
-                if (bias != nullptr && !bias_on_rows) b = bias[col + k];
-                res.v[k] = from_float<T>(lrelu(to_float(in.v[k]) + b, slope, scale));
-            }
-            *reinterpret_cast<P*>(yr + col) = res;
+        for (int k = 0; k < VEC; ++k) {
+            const float b = (bias != nullptr && !bias_on_rows) ? bias[col + k] : row_bias;
+            res.v[k] = from_float<T>(lrelu(to_float(in.v[k]) + b, slope, scale));
         }
+        *reinterpret_cast<P*>(out + i) = res;
+    }
+}
+
+template <typename T, typename I>
+void launch_indexed(const T* x, const float* bias, T* out, int64_t n, int64_t cols, int64_t channels,
+                 int bias_on_rows, bool vec, float slope, float scale, cudaStream_t stream) {
+    constexpr int VEC = 16 / sizeof(T);
+    const int64_t accesses = vec ? n / VEC : n;
+    const int64_t blocks = (accesses + 255) / 256;
+    const unsigned grid = (unsigned)(blocks < 65535 ? blocks : 65535);  // grid-stride beyond
+    if (vec) {
+        fused_bias_act_kernel<T, VEC, I><<<grid, 256, 0, stream>>>(
+            x, bias, out, (I)n, (I)cols, (I)channels, bias_on_rows, slope, scale);
+    } else {
+        fused_bias_act_kernel<T, 1, I><<<grid, 256, 0, stream>>>(
+            x, bias, out, (I)n, (I)cols, (I)channels, bias_on_rows, slope, scale);
     }
 }
 
@@ -104,26 +126,19 @@ void launch(const void* x, const float* bias, void* out, int64_t rows, int64_t c
             int64_t channels, int bias_on_rows, float slope, float scale, cudaStream_t stream) {
     constexpr int VEC = 16 / sizeof(T);
     const bool vec = (cols % VEC == 0) && ((uintptr_t)x % 16 == 0) && ((uintptr_t)out % 16 == 0);
-    const int64_t per_row = vec ? cols / VEC : cols;
-    // narrow rows (4x4 maps: 16 elements) get one warp, wide rows 256 threads
-    const int64_t threads = per_row >= 256 ? 256 : ((per_row + 31) / 32) * 32;
-    const int64_t bx = (per_row + threads - 1) / threads;
-    const dim3 grid((unsigned)(bx < 65535 ? bx : 65535), (unsigned)(rows < 65535 ? rows : 65535));
     const T* xt = static_cast<const T*>(x);
     T* yt = static_cast<T*>(out);
-    if (vec) {
-        fused_bias_act_kernel<T, VEC><<<grid, (unsigned)threads, 0, stream>>>(
-            xt, bias, yt, rows, cols, channels, bias_on_rows, slope, scale);
+    const int64_t n = rows * cols;
+    if (n < ((int64_t)1 << 31)) {
+        launch_indexed<T, uint32_t>(xt, bias, yt, n, cols, channels, bias_on_rows, vec, slope, scale, stream);
     } else {
-        fused_bias_act_kernel<T, 1><<<grid, (unsigned)threads, 0, stream>>>(
-            xt, bias, yt, rows, cols, channels, bias_on_rows, slope, scale);
+        launch_indexed<T, int64_t>(xt, bias, yt, n, cols, channels, bias_on_rows, vec, slope, scale, stream);
     }
 }
 
 // dx = dy * (y >= 0 ? pos_gain : neg_gain). No bias, so no row structure: the
 // tensor is one flat row of n elements (the [1, n] case of the forward's
-// view), which keeps every thread busy on the 4x4 and 8x8 maps, where the
-// forward's one row per block leaves most of a warp idle. Same vector rule:
+// view). Same vector rule:
 // VEC > 1 only if n % VEC == 0 and all three pointers are 16-byte aligned.
 template <typename T, int VEC>
 __global__ void __launch_bounds__(256) fused_bias_act_grad_kernel(

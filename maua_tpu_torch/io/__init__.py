@@ -6,6 +6,7 @@ from .jax_params import (
     generator_state_dict_from_jax,
     inception_state_dict_from_jax,
     lpips_state_dict_from_jax,
+    lucidrains_state_dict_from_jax,
     projection_head_state_dict_from_jax,
     stylegan1_state_dict_from_jax,
     vae_state_dict_from_jax,
@@ -24,6 +25,7 @@ __all__ = [
     "load_tf_pickle_networks",
     "load_torch_checkpoint",
     "lpips_state_dict_from_jax",
+    "lucidrains_state_dict_from_jax",
     "projection_head_state_dict_from_jax",
     "stylegan1_state_dict_from_jax",
     "vae_state_dict_from_jax",

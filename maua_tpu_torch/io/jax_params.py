@@ -26,7 +26,13 @@ the flax `params` and `batch_stats` of any model of the VAE family onto
 `model`'s state dict: `enc_3` -> `enc.3`, `enc1_0` -> `enc.1.0`, `final_0` ->
 `final`, `BatchNorm_0` `scale` / `bias` / `mean` / `var` -> `bn.weight` /
 `bn.bias` / `bn.running_mean` / `bn.running_var`, Dense `kernel` [in, out] ->
-`weight` [out, in]. Only numpy is needed on the JAX side: any array
+`weight` [out, in]. `lucidrains_state_dict_from_jax(params)` maps the flax
+params of the lucidrains `StyleVectorizer`, `LucidrainsGenerator` or
+`LucidrainsDiscriminator` onto the port's module of the same flax names: a
+Dense `kernel` [in, out] -> `weight` [out, in], a Conv `kernel` HWIO ->
+`weight` OIHW; `Conv2DMod`'s `weight` (OIHW in both), `initial_block` [C, 4,
+4], the scalar `rezero_g` and the `codebook` [K, dim] as they are. Only numpy
+is needed on the JAX side: any array
 type that `np.asarray` takes will do.
 """
 
@@ -46,6 +52,7 @@ __all__ = [
     "generator_state_dict_from_jax",
     "inception_state_dict_from_jax",
     "lpips_state_dict_from_jax",
+    "lucidrains_state_dict_from_jax",
     "projection_head_state_dict_from_jax",
     "stylegan1_state_dict_from_jax",
     "vae_state_dict_from_jax",
@@ -248,4 +255,24 @@ def vae_state_dict_from_jax(variables: Mapping[str, Any], model: torch.nn.Module
     for k, v in sd.items():
         if v.shape != want[k].shape:
             raise ValueError(f"{k}: {tuple(v.shape)} from JAX, {tuple(want[k].shape)} in the model")
+    return sd
+
+
+def lucidrains_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """flax params of a lucidrains S, G or D -> a state dict for the port's
+    `StyleVectorizer`, `LucidrainsGenerator` or `LucidrainsDiscriminator`."""
+    sd: dict[str, torch.Tensor] = {}
+
+    def walk(tree, path):
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                walk(v, path + [k])
+                continue
+            t = _t(v)
+            if k == "kernel":  # Dense [in, out] -> [out, in]; Conv HWIO -> OIHW
+                t = t.t() if t.ndim == 2 else t.permute(3, 2, 0, 1)
+                k = "weight"
+            sd[".".join(path + [k])] = t.contiguous()
+
+    walk(params, [])
     return sd

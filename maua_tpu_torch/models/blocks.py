@@ -202,10 +202,12 @@ class ModulatedConv2d(nn.Module):
             p = (len(blur_kernel) - factor) - (kernel_size - 1)
             self.blur = Blur(blur_kernel, pad=((p + 1) // 2 + factor - 1, p // 2 + 1), upsample_factor=factor)
 
-    def forward(self, x: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, style: torch.Tensor, weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`weight` [1, O', I, k, k] stands in for `self.weight` (a tensor-parallel
+        rank's slice of the out-channels); the output then has O' channels."""
         h, w = x.shape[-2:]
         s = self.modulation(style)  # [B, in]
-        weight = self.weight[0] * self.scale  # [O, I, k, k], fp32
+        weight = (self.weight if weight is None else weight)[0] * self.scale  # [O, I, k, k], fp32
         if self.demodulate:
             # fp32 whatever the synthesis dtype: rsqrt of near-cancelling sums
             w_sq = weight.square().sum(dim=(2, 3))  # [O, I]

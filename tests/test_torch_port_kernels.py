@@ -37,7 +37,9 @@ def _x_and_bias(shape, with_bias, seed=0):
     return x, b
 
 
-KERNEL_SHAPES = [(8, 512), (8, 512, 4, 4), (8, 512, 64, 64), (8, 32, 256, 256), (3, 130), (2, 3, 5, 7)]
+# the last two: the VAE's batch-norm outputs on 4x4 and 2x2 maps (rows of 16 and 4 elements)
+KERNEL_SHAPES = [(8, 512), (8, 512, 4, 4), (8, 512, 64, 64), (8, 32, 256, 256), (3, 130), (2, 3, 5, 7),
+                 (64, 256, 4, 4), (64, 512, 2, 2)]
 
 
 @pytest.mark.cuda

@@ -1,8 +1,8 @@
 """maua_tpu_torch stands alone and fails loudly without a card: importing
 every module (the training, data, audio, reactive, pipeline, eval, telemetry
-and parallel subpackages, the VAE family, StyleGAN1, the TF-pickle reader and
-the example plugins included) pulls in no jax,
-flax or maua_tpu; the entry points raise RuntimeError when they would need
+and parallel subpackages, the VAE family, StyleGAN1, the TF-pickle reader,
+the lucidrains family, tensor parallelism and the example plugins included)
+pulls in no jax, flax, optax or maua_tpu; the entry points raise RuntimeError when they would need
 CUDA and there is none; chip_smoke.py fails without a card and outside the
 repo."""
 
@@ -30,7 +30,7 @@ names = [m.name for m in pkgutil.walk_packages(maua_tpu_torch.__path__, "maua_tp
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "maua_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "maua_tpu"))
 print(len(names), ",".join(names), bad)
 """
 
@@ -49,7 +49,7 @@ def test_package_imports_no_jax_or_maua_tpu():
     )
     assert out.returncode == 0, out.stderr
     n_modules, names, bad = out.stdout.strip().split(" ", 2)
-    assert int(n_modules) >= 79
+    assert int(n_modules) >= 82
     for sub in ("train.step", "train.cli", "train.checkpoint", "train.augment", "train.fft_warp", "train.contrastive",
                 "ops.gather", "data.prepare", "data.loader", "data.records", "data.synthetic",
                 "audio.postprocess", "audio.dsp", "audio.hpss", "audio.onsets", "audio.chroma", "audio.features",
@@ -59,9 +59,28 @@ def test_package_imports_no_jax_or_maua_tpu():
                 "models.stylegan1", "io.tf_pkl", "ops.resize", "draws", "eval.lpips", "eval.inception",
                 "eval.metrics", "eval.swd", "eval.cli", "telemetry", "telemetry.spectral", "telemetry.memory",
                 "telemetry.monitor", "telemetry.profiling", "parallel", "parallel.mesh", "models.autoencoder",
-                "train.vae", "train.vae_cli", "data.prepare_vae_codes", "examples.temper", "examples.rewrite_demo"):
+                "train.vae", "train.vae_cli", "data.prepare_vae_codes", "examples.temper", "examples.rewrite_demo",
+                "models.lucidrains", "train.lucidrains_trainer", "parallel.tp"):
         assert f"maua_tpu_torch.{sub}" in names.split(","), sub
     assert bad == "[]", f"maua_tpu_torch imported {bad}"
+
+
+def test_chip_smoke_imports_no_jax_or_maua_tpu():
+    """Every import statement of chip_smoke.py, at any depth, names no jax,
+    flax, optax or maua_tpu module (the script imports inside its phases)."""
+    import ast
+
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+    assert "maua_tpu_torch.train" in names or "maua_tpu_torch.ops" in names
+    bad = sorted(n for n in names if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "maua_tpu"))
+    assert not bad, bad
 
 
 def _no_cuda():
@@ -88,6 +107,18 @@ def test_init_train_state_without_device_needs_cuda():
     cfg = make_train_config(size=16, batch_size=4, channel_max=32, augment=False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_train_state(cfg)
+
+
+def test_lucidrains_trainer_and_tp_mesh_without_device_need_cuda(tmp_path):
+    _no_cuda()
+    from maua_tpu_torch.parallel import get_2d_mesh
+    from maua_tpu_torch.train import LucidrainsConfig, LucidrainsTrainer
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LucidrainsTrainer(LucidrainsConfig(image_size=16, latent_dim=16, style_depth=1, network_capacity=2),
+                          models_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_2d_mesh(1, 1)
 
 
 def test_train_loop_without_device_needs_cuda(tmp_path):
