@@ -30,9 +30,13 @@ Data parallelism: `--coordinator host:port --num_processes N --process_id i`
 (or COORDINATOR_ADDRESS, NUM_PROCESSES and PROCESS_ID) starts one of N
 processes, one per card (`cuda:{i % cards}`; gloo with `--device cpu`).
 `--batch_size` is the global batch; see train/step.py for what is reduced
-over the ranks. Rank 0 alone writes metrics, samples, checkpoints and wandb
-logs and runs the monitor and the trace; evaluation in training is
-single-process and is skipped.
+over the ranks. `--reg_chunks` and `--remat_synth` resolve as without a
+coordinator (from 512^2: batch_size // 4 chunks, remat on); a batch whose
+local block, R1 chunks or path-penalty chunk the ranks cannot split raises
+ValueError before the first step, naming a `--reg_chunks` that splits.
+Rank 0 alone writes metrics, samples, checkpoints and wandb logs and runs
+the monitor and the trace; evaluation in training is single-process and is
+skipped.
 
 Each logged step appends one JSON line to `<run_dir>/metrics.jsonl` with the
 JAX package's metric names, the D phase's `sign_sum` and `n_pred` (ADA's
@@ -187,12 +191,12 @@ def _train(args, multiprocess: bool) -> Optional[TrainState]:
         ),
         ada_fft_taper=args.ada_fft_taper if args.ada_fft_taper > 0 else None,
         ada_fft_taper_conditional=not args.ada_fft_taper_always,
-        # the same automatic rules as the JAX CLI: chunk the lazy regularizers
-        # into stddev-group-sized pieces and rematerialise the G synthesis from
-        # 512^2 on, where their peak memory bounds the batch
-        # (single-process only: a data-parallel run keeps 1 unless asked)
+        # the same automatic rules as the JAX CLI, with or without a
+        # coordinator: chunk the lazy regularizers into stddev-group-sized
+        # pieces and rematerialise the G synthesis from 512^2 on, where their
+        # peak memory bounds the batch
         reg_chunks=(args.reg_chunks if args.reg_chunks > 0
-                    else (max(1, args.batch_size // 4) if args.size >= 512 and not multiprocess else 1)),
+                    else (max(1, args.batch_size // 4) if args.size >= 512 else 1)),
         remat_synth=args.remat_synth > 0 if args.remat_synth >= 0 else args.size >= 512,
     )
     if args.print_config:

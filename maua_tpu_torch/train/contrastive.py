@@ -9,6 +9,13 @@ keys (`bw` of the head, identity at init, trained with D's optimizer), and a
 ring buffer of past projected keys used as extra InfoNCE negatives, whose
 unfilled slots are masked out. The queue, its write pointer and its fill
 count are device tensors, so the step never reads them on the host.
+
+Data parallel: `contrastive_regularizer_moco(..., gather=)` takes the
+differentiable all-gather of the ranks' blocks (`parallel.gather_batch`),
+so each rank computes the loss of the global batch, as GSPMD does in the JAX
+package, and enqueues the global keys. Its backward sums each row's gradient
+over the ranks, which the average of the parameter gradients over the ranks
+turns back into the one-process gradient.
 """
 
 from __future__ import annotations
@@ -154,18 +161,21 @@ def contrastive_regularizer_moco(
     augmenteds: Sequence[torch.Tensor],
     loss_type: str = "infonce",
     temperature: float = 0.1,
+    gather: Callable[[torch.Tensor], torch.Tensor] = lambda t: t,
 ) -> tuple[torch.Tensor, Optional[ContrastiveState]]:
     """Queries: D's hidden layer of the originals through the head. Keys: the
     key encoder's (without gradient) or D's of the augmented images through
-    the head, then the bilinear transform. The loss against the current keys
-    (and the queue's, for InfoNCE with a queue); the new keys are enqueued.
-    Returns (loss, state)."""
-    queries = torch.cat([project(head, d_hidden(x)) for x in originals])
+    the head, then the bilinear transform. Each batch's projections go
+    through `gather` (the ranks' blocks end to end under data parallelism)
+    before the batches are concatenated, so the rows keep the one-process
+    order. The loss against the current keys (and the queue's, for InfoNCE
+    with a queue); the new keys are enqueued. Returns (loss, state)."""
+    queries = torch.cat([gather(project(head, d_hidden(x))) for x in originals])
     if key_d_hidden is not None:
         with torch.no_grad():
-            keys = torch.cat([project(head, key_d_hidden(x)) for x in augmenteds])
+            keys = torch.cat([gather(project(head, key_d_hidden(x))) for x in augmenteds])
     else:
-        keys = torch.cat([project(head, d_hidden(x)) for x in augmenteds])
+        keys = torch.cat([gather(project(head, d_hidden(x))) for x in augmenteds])
     if head.bw is not None:
         keys = keys @ head.bw.t()
     if cl_state is not None and cl_state.queue is not None and loss_type != "nt_xent":

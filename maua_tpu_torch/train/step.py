@@ -39,8 +39,15 @@ the global batch. The minibatch stddev of D groups over the global batch (an
 all-gather of the features that is differentiable to any order, R1's double
 backward included), the path-length mean is the global mean, ADA's sign
 counts are summed over the ranks, and the logged losses are averaged. EMA and
-lookahead run on every rank on the same weights. `reg_chunks > 1` and the
-contrastive regularizer are single-process.
+lookahead run on every rank on the same weights. R1's strided chunks of the
+local block, laid end to end over the ranks, are the one-process chunks (the
+local batch is a multiple of `reg_chunks`), so chunked R1 sees the
+one-process stddev groups; each path chunk is drawn for the global chunk and
+cut per rank. The contrastive regularizer gathers the projected queries and
+keys of every rank (fakes, then reals) and computes its loss over the global
+batch on every rank; every rank enqueues the same global keys and moves its
+key encoder from the same D. `check_split` refuses, before the first step, a
+batch that the ranks cannot split.
 
 Exact options: gradient accumulation over `num_accumulate` microbatches,
 `reg_chunks` for R1 (sequential strided chunks, guarded so that a chunk keeps
@@ -67,7 +74,7 @@ from ..device import DeviceLike, resolve_device
 from ..models import Discriminator, Generator, channel_map
 from ..models.blocks import tf32
 from ..models.stylegan2 import noise_shapes
-from ..parallel import all_reduce_mean_, all_reduce_mean_tree, all_reduce_sum, gather_batch, tree_rows
+from ..parallel import all_reduce_mean_, all_reduce_mean_tree, all_reduce_sum, gather_batch, process_count, tree_rows
 from .augment import AugmentDraw, ada_adjust_p, augment, draw_augment
 from .contrastive import (
     ContrastiveState,
@@ -86,6 +93,7 @@ __all__ = [
     "StepDraws",
     "TrainConfig",
     "TrainState",
+    "check_split",
     "draw_step",
     "init_train_state",
     "local_draws",
@@ -294,6 +302,51 @@ def _path_batch(cfg: TrainConfig) -> int:
     return max(1, cfg.batch_size // max(cfg.path_batch_shrink, 1) // _reg_k(cfg))
 
 
+def _split_problems(cfg: TrainConfig, world: int) -> list[str]:
+    b, k = cfg.batch_size, _reg_k(cfg)
+    problems = []
+    if b % world:
+        problems.append(f"the global batch {b} does not split over {world} ranks")
+    elif (b // world) % k:
+        problems.append(f"the local batch {b // world} (global batch {b} over {world} ranks) does not split "
+                        f"into reg_chunks {k} R1 chunks")
+    if cfg.path_regularize > 0 and _path_batch(cfg) % world:
+        problems.append(f"the path penalty's chunk of {_path_batch(cfg)} rows (global batch {b} // path_batch_shrink "
+                        f"{cfg.path_batch_shrink} // reg_chunks {k}) does not split over {world} ranks")
+    return problems
+
+
+def _splitting_chunks(cfg: TrainConfig, world: int, stddev_group: int) -> list[int]:
+    """The reg_chunks that split a step of `cfg` over `world` ranks and keep
+    whole stddev groups in a chunk."""
+    b = cfg.batch_size
+    return [k for k in range(1, b + 1) if b % k == 0 and (k == 1 or (b // k) % stddev_group == 0)
+            and not _split_problems(cfg._replace(reg_chunks=k), world)]
+
+
+def check_split(cfg: TrainConfig, world: int, stddev_group: int = STDDEV_GROUP) -> None:
+    """Raise ValueError where the `world` data-parallel ranks cannot split a
+    step of `cfg`: the global batch, R1's chunks of the local batch, or the
+    path penalty's chunk (GSPMD would pad it; the port does not). The message
+    names the numbers and the reg_chunks (`--reg_chunks`) that would split,
+    or, where none does, the next global batch that splits."""
+    problems = _split_problems(cfg, world)
+    if not problems:
+        return
+    batch = cfg.batch_size
+    fits = _splitting_chunks(cfg, world, stddev_group)
+    while not fits:  # ends: a multiple of path_batch_shrink * world splits unchunked
+        batch += 1
+        fits = _splitting_chunks(cfg._replace(batch_size=batch), world, stddev_group)
+    ks = " or ".join(map(str, fits))
+    if batch == cfg.batch_size:
+        hint = f"reg_chunks (--reg_chunks) {ks} would split it"
+    else:
+        hint = (f"no reg_chunks splits a global batch of {cfg.batch_size} over {world} ranks; "
+                f"a global batch of {batch} splits with reg_chunks (--reg_chunks) {ks}")
+    raise ValueError(f"{'; '.join(problems)}: {hint}")
+
+
 def path_due(cfg: TrainConfig, step: int) -> bool:
     return cfg.path_regularize > 0 and step % cfg.g_reg_every == 0
 
@@ -399,8 +452,7 @@ def make_train_phases(cfg: TrainConfig) -> dict[str, Callable[..., Any]]:
     n_acc = cfg.num_accumulate
     if cfg.batch_size % reg_k != 0:
         raise ValueError(f"reg_chunks ({reg_k}) must divide batch_size ({cfg.batch_size})")
-    if dist.is_initialized() and (reg_k > 1 or cfg.contrastive_weight > 0):
-        raise ValueError("reg_chunks > 1 and the contrastive regularizer are single-process only")
+    check_split(cfg, process_count())
     aug_kw = dict(fast_warp=cfg.ada_fast_warp, warp_method=cfg.ada_warp_method, fft_taper=cfg.ada_fft_taper,
                   fft_taper_conditional=cfg.ada_fft_taper_conditional)
     adt = torch.bfloat16 if cfg.bf16 else torch.float32  # augment in D's compute dtype
@@ -453,7 +505,7 @@ def make_train_phases(cfg: TrainConfig) -> dict[str, Callable[..., Any]]:
             key_d = None if cl_state is None else cl_state.key_d
             cl, cl_state = contrastive_regularizer_moco(
                 d.hidden, None if key_d is None else key_d.hidden, state.cl_head, cl_state,
-                [fake, real], [fake_aug, real_aug], loss_type=cfg.contrastive_loss_type,
+                [fake, real], [fake_aug, real_aug], loss_type=cfg.contrastive_loss_type, gather=gather_batch,
             )
             loss = loss + cfg.contrastive_weight * cl
         aux = {"d_loss": loss.detach(), "real_score": real_pred.detach().mean(), "fake_score": fake_pred.detach().mean(),

@@ -83,6 +83,21 @@ def test_chip_smoke_imports_no_jax_or_maua_tpu():
     assert not bad, bad
 
 
+def test_probe_scripts_import_no_jax_or_maua_tpu():
+    """The card probes beside chip_smoke.py import no jax, flax, optax or
+    maua_tpu module either."""
+    import ast
+
+    for script in ("probe_fused_bias_act.py", "probe_train_1024.py"):
+        with open(os.path.join(REPO, script)) as f:
+            tree = ast.parse(f.read())
+        names = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
+        names |= {n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.level == 0}
+        assert any(n.startswith("maua_tpu_torch") for n in names), script
+        bad = sorted(n for n in names if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "maua_tpu"))
+        assert not bad, (script, bad)
+
+
 def _no_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device resolves")
