@@ -7,6 +7,10 @@ it to the device: through pinned host memory with a non-blocking copy when
 the device is a CUDA card. A dataset with `uint8_hwc=True` (the train CLI's
 default) gives [A, B, H, W, 3] uint8 batches that the train step normalises
 on the device, a quarter of the bytes of fp32; otherwise [A, B, 3, H, W] fp32.
+While a profiler records, each `next()` is a `data` span (the batch serial
+its request id) around `data.wait` (the queue) and `data.assemble` (the
+rest), and counts `data.starved` when fewer records than the batch needs are
+queued (telemetry/profiling.py).
 
 `batch_size` is the global batch. Under a torch.distributed process group
 each of the `world` ranks loads its block of batch_size / world samples: every
@@ -29,6 +33,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..parallel import process_count, process_index
+from ..telemetry.profiling import count, phase
 
 __all__ = ["DataLoader"]
 
@@ -53,6 +58,7 @@ class DataLoader:
                          if (k // self.local_batch) % self.world == self.rank)
         self._item_q: queue.Queue = queue.Queue(maxsize=PREFETCH * self.local_batch * num_accumulate)
         self._stop = threading.Event()
+        self._served = 0  # batches handed out: the request id of the `data` spans
         self._workers = [threading.Thread(target=self._worker, daemon=True) for _ in range(max(1, num_workers))]
         for w in self._workers:
             w.start()
@@ -76,8 +82,18 @@ class DataLoader:
         return self
 
     def __next__(self) -> torch.Tensor:
-        n = self.local_batch * self.num_accumulate
-        items = [self._item_q.get() for _ in range(n)]
+        serial = self._served
+        self._served += 1
+        with phase("data", request=serial):
+            n = self.local_batch * self.num_accumulate
+            if self._item_q.qsize() < n:
+                count("data.starved")
+            with phase("data.wait", request=serial):
+                items = [self._item_q.get() for _ in range(n)]
+            with phase("data.assemble", request=serial):
+                return self._assemble(items)
+
+    def _assemble(self, items: list) -> torch.Tensor:
         for item in items:
             if isinstance(item, Exception):
                 raise RuntimeError("a loader worker could not read a record") from item

@@ -5,17 +5,12 @@ the reference's gpu_profile.py line tracer).
   the JAX names `bytes_in_use` and `peak_bytes_in_use` added for the
   allocated bytes now and at the peak; an empty dict for the CPU, as JAX's
   CPU `memory_stats` gives.
-* `log_memory_deltas(label)`: the change of bytes in use over a region,
-  printed when it passes a threshold (the reference's >256 MB rule).
 * `save_device_memory_profile(path)`: the caching allocator's snapshot
   (`torch.cuda.memory._dump_snapshot`, a pickle that pytorch.org/memory_viz
   reads), with the allocation history that `record_memory_history` started.
 """
 
 from __future__ import annotations
-
-import contextlib
-from typing import Iterator
 
 import torch
 
@@ -39,19 +34,6 @@ def memory_snapshot(device: DeviceLike = None) -> dict[str, int]:
     stats["bytes_in_use"] = stats.get("allocated_bytes.all.current", 0)
     stats["peak_bytes_in_use"] = stats.get("allocated_bytes.all.peak", 0)
     return stats
-
-
-@contextlib.contextmanager
-def log_memory_deltas(label: str, threshold_mb: float = 256.0, sink=print, device: DeviceLike = None) -> Iterator[None]:
-    """Report the change of device bytes in use over the region when it is
-    at least `threshold_mb`."""
-    before = memory_snapshot(device)
-    yield
-    after = memory_snapshot(device)
-    delta = after.get("bytes_in_use", 0) - before.get("bytes_in_use", 0)
-    if abs(delta) >= threshold_mb * 1024 * 1024:
-        sink(f"[mem] {label}: Δ{delta / 1e6:+.0f} MB (in_use {after.get('bytes_in_use', 0) / 1e6:.0f} MB, "
-             f"peak {after.get('peak_bytes_in_use', 0) / 1e6:.0f} MB)")
 
 
 def record_memory_history(max_entries: int = 100_000) -> None:

@@ -21,8 +21,13 @@ and D's weights to each log line (`G spectral_min` / `_mean` / `_max`, the
 same for D); `--monitor` starts the device monitor thread
 (`<run_dir>/gpumon.jsonl`: bytes allocated per card now and at the peak,
 host RSS, 30-sample means every 2 s); `--profile` traces the first
-`--profile_iters` steps with torch.profiler into `<run_dir>/trace/`. The
-data and train-step phases of each step are named ranges in the trace.
+`--profile_iters` steps with torch.profiler into `<run_dir>/trace/`:
+`trace.json`, `key_averages.txt` and `spans.json`, the program's spans over
+those steps (the loader's `data`, `data.wait` and `data.assemble`, and
+`train_step` with its phases `train_step.d`, `.r1`, `.ada`, `.g`, `.path` and
+`.tail`, each timed on the device too) and their counters (`data.starved`,
+`cuda.syncs`); the spans are also named ranges in the trace
+(telemetry/profiling.py).
 `--wandb` logs to wandb when it imports and initialises, and otherwise
 prints `wandb unavailable (...)` and trains on.
 
@@ -69,7 +74,7 @@ from ..parallel import (
     process_index,
     shutdown_distributed,
 )
-from ..telemetry import init_spectral_state, phase, profile_trace, spectral_norms
+from ..telemetry import init_spectral_state, profile_trace, spectral_norms
 from ..telemetry.monitor import DeviceMonitor
 from ..telemetry.spectral import summarize
 from .checkpoint import (
@@ -262,12 +267,10 @@ def _train(args, multiprocess: bool) -> Optional[TrainState]:
         t_last = time.time()
         start = state.step
         for i in range(start, args.iter):
-            with phase("data"):
-                real = next(loader)
+            real = next(loader)
             draws = draw_step(cfg, state.step, draw_gen, device)
             before = (fused_act.launches, fused_act.grad_launches)
-            with phase("train_step"):
-                metrics = step_fn(state, real, draws)
+            metrics = step_fn(state, real, draws)
             counts["fused_bias_act launches"] += fused_act.launches - before[0]
             counts["fused_bias_act_grad launches"] += fused_act.grad_launches - before[1]
             if trace_ctx is not None and i - start >= args.profile_iters:

@@ -28,6 +28,10 @@ state holds the modules and optimizers and the phases update it in place:
   head's).
 * Each phase holds TF32 off (`tf32(False, False)`) over its forward and its
   backward: cuDNN's default would run the backward convs in TF32.
+* While a profiler records, the step is a `train_step` span around one span
+  per phase that runs (`train_step.d`, `.r1`, `.ada`, `.g`, `.path`,
+  `.tail`), each with the step as its request id and timed on the device by
+  CUDA events on a card (telemetry/profiling.py).
 
 Data parallelism: when a torch.distributed process group is open (the train
 CLI's `--coordinator`), `cfg.batch_size` is the global batch and each rank
@@ -75,6 +79,7 @@ from ..models import Discriminator, Generator, channel_map
 from ..models.blocks import tf32
 from ..models.stylegan2 import noise_shapes
 from ..parallel import all_reduce_mean_, all_reduce_mean_tree, all_reduce_sum, gather_batch, process_count, tree_rows
+from ..telemetry.profiling import phase
 from .augment import AugmentDraw, ada_adjust_p, augment, draw_augment
 from .contrastive import (
     ContrastiveState,
@@ -633,37 +638,46 @@ def make_train_step(cfg: TrainConfig):
     phases = make_train_phases(cfg)
 
     def train_step(state: TrainState, real_imgs: torch.Tensor, draws: StepDraws) -> dict[str, torch.Tensor]:
-        real_imgs = prepare_reals(real_imgs)
-        if dist.is_initialized():
-            draws = local_draws(draws)
-        zero = torch.zeros((), device=real_imgs.device)
-        d_aux, _ = phases["d"](state, real_imgs, draws.d)
-        r1_val = phases["r1"](state, real_imgs)[0] if r1_due(cfg, state.step) else zero
-        r_t = phases["ada"](state, d_aux)
-        g_loss, _ = phases["g"](state, draws.g)
-        if path_due(cfg, state.step):
-            if len(draws.path) != cfg.num_accumulate * _reg_k(cfg):
-                raise ValueError(f"step {state.step}: the path penalty is due but the draws hold {len(draws.path)} path chunks")
-            path_pen = phases["path"](state, draws.path)[0]
-        else:
+        step, dev = state.step, state.device
+        with phase("train_step", request=step, device=dev):
+            real_imgs = prepare_reals(real_imgs)
+            if dist.is_initialized():
+                draws = local_draws(draws)
+            zero = torch.zeros((), device=real_imgs.device)
+            with phase("train_step.d", request=step, device=dev):
+                d_aux, _ = phases["d"](state, real_imgs, draws.d)
+            r1_val = zero
+            if r1_due(cfg, step):
+                with phase("train_step.r1", request=step, device=dev):
+                    r1_val = phases["r1"](state, real_imgs)[0]
+            with phase("train_step.ada", request=step, device=dev):
+                r_t = phases["ada"](state, d_aux)
+            with phase("train_step.g", request=step, device=dev):
+                g_loss, _ = phases["g"](state, draws.g)
             path_pen = zero
-        phases["tail"](state)
-        n_acc = cfg.num_accumulate
-        losses = all_reduce_mean_tree({
-            "Generator": g_loss / n_acc,
-            "Discriminator": d_aux["d_loss"] / n_acc,
-            "Real Score": d_aux["real_score"] / n_acc,
-            "Fake Score": d_aux["fake_score"] / n_acc,
-            "R1 Penalty": r1_val / n_acc,
-            "Path Length Regularization": path_pen / n_acc,
-        })
-        return {
-            **losses,
-            "Rt": r_t,
-            "Augment": state.ada_p,
-            "Mean Path Length": state.mean_path_length,
-            "sign_sum": d_aux["sign_sum"],
-            "n_pred": d_aux["n_pred"],
-        }
+            if path_due(cfg, step):
+                if len(draws.path) != cfg.num_accumulate * _reg_k(cfg):
+                    raise ValueError(f"step {step}: the path penalty is due but the draws hold {len(draws.path)} path chunks")
+                with phase("train_step.path", request=step, device=dev):
+                    path_pen = phases["path"](state, draws.path)[0]
+            with phase("train_step.tail", request=step, device=dev):
+                phases["tail"](state)
+            n_acc = cfg.num_accumulate
+            losses = all_reduce_mean_tree({
+                "Generator": g_loss / n_acc,
+                "Discriminator": d_aux["d_loss"] / n_acc,
+                "Real Score": d_aux["real_score"] / n_acc,
+                "Fake Score": d_aux["fake_score"] / n_acc,
+                "R1 Penalty": r1_val / n_acc,
+                "Path Length Regularization": path_pen / n_acc,
+            })
+            return {
+                **losses,
+                "Rt": r_t,
+                "Augment": state.ada_p,
+                "Mean Path Length": state.mean_path_length,
+                "sign_sum": d_aux["sign_sum"],
+                "n_pred": d_aux["n_pred"],
+            }
 
     return train_step

@@ -70,10 +70,7 @@ def test_profile_trace_and_memory_helpers_on_the_cpu(tmp_path):
     trace = json.load(open(tmp_path / "trace" / "trace.json"))
     assert any(e.get("name") == "matmul_phase" for e in trace["traceEvents"])
     assert "aten::mm" in (tmp_path / "trace" / "key_averages.txt").read_text()
-    assert telemetry.memory_snapshot("cpu") == {} and telemetry.device_memory_stats("cpu") == {}
-    assert telemetry.install_compile_metrics() is False and telemetry.log_compile_stats() == {}
-    with telemetry.log_memory_deltas("nothing", sink=pytest.fail, device="cpu"):
-        pass
+    assert telemetry.memory_snapshot("cpu") == {}
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             telemetry.save_device_memory_profile(str(tmp_path / "mem.pickle"))
