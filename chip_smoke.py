@@ -12,7 +12,11 @@ Phases, each printing JSON lines:
      shapes (`kernel`, `kernel_render_batch`; both kernels at the training
      shapes after the runs, `kernel_train_shapes`), plus first-order (dx,
      db) and the grad of a grad-norm through the two autograd Functions on
-     the card against plain autograd;
+     the card against plain autograd; the upfirdn2d kernel against its plain
+     form at render's sites (batch 8, 1024^2) and a 256^2 training step's
+     (forward and backward geometries of G at batch 12 and of D's fused
+     pass at 24), beside its memory bound and F.conv2d's depthwise conv
+     (`library_ms`, a yardstick the port does not call);
   3. generator, card against CPU: a full-width 256^2 checkpoint made from a
      numpy seed, same W+ latents and noise, exact fp32, max abs <= 1e-3;
   4. the render path at full width: a random-weight checkpoint of the
@@ -20,9 +24,9 @@ Phases, each printing JSON lines:
      render() of 48 frames at batch 8 into an mp4, with tensor truncation and
      an explicit noise timeline up to 256 wide. The launch counters are set to
      0 just before and read just after; the forward kernel must have run
-     exactly 8 (mapping) + 17 x 6 (render batches) times. Then frames/s for
-     fp32 exact, fp32 fast and bf16, and the top CUDA ops of one 1024^2 batch
-     from torch.profiler;
+     exactly 8 (mapping) + 17 x 6 (render batches) times, upfirdn2d 16 x 6.
+     Then frames/s for fp32 exact, fp32 fast and bf16, and the top CUDA ops
+     of one 1024^2 batch from torch.profiler;
   5. training, card against CPU (`train_card_vs_cpu`): a narrow model (32^2,
      channel_max 64, batch 4), each phase of a step with R1 and the path
      penalty due, from the same weights and the same explicit draws, exact
@@ -33,9 +37,9 @@ Phases, each printing JSON lines:
      multiplier 2, channel_max 512, constant input, batch 12, --no-augment,
      lookahead on) for 8 steps in fp32 exact and again in bf16. The counters
      are set to 0 just before each run and read just after; every step's
-     launches of both kernels must equal the counts derived from the model's
-     structure. s/step by kind of step, imgs/s, per-phase CUDA-event times,
-     peak memory; the checkpoint's g_ema goes through load_generator and
+     launches of the three kernels must equal the counts derived from the
+     model's structure (expected_launches, expected_fir_launches). s/step
+     by kind of step, imgs/s, per-phase CUDA-event times, peak memory; the checkpoint's g_ema goes through load_generator and
      render(); R1's gradients with upfirdn2d's autograd Function against
      autograd of its depthwise conv (`r1_upfirdn2d_autograd`, fp32);
      torch.profiler over one step with R1 and the path penalty and over one
@@ -71,18 +75,20 @@ Phases, each printing JSON lines:
      onsets; (c) the tauceti example plugin at out_size 1920 for 2 s. The
      counters are set to 0 just before (b) and (c) and read just after: 8
      (generate_latents) + 8 if truncated (mean_latent) + 17 per batch
-     forward launches. Then the forward kernel against its plain version at
-     the launch shapes of (b) and (c) not held before (`kernel_generate`).
+     forward launches, 16 upfirdn2d launches per batch. Then the forward
+     kernel against its plain version at the launch shapes of (b) and (c)
+     not held before (`kernel_generate`).
  13. the inference tools, StyleGAN1, TF pickles and evaluation, card against
      CPU at 256^2 in exact fp32 (`tools_card_vs_cpu`): LPIPS vgg and alex,
      Inception in both variants, a full-width StyleGAN1, the projector's
      first step (loss, latent and noise gradients) with LPIPS-VGG, and a TF
      Gs pickle's conversion (equal state dicts) and images;
  14. the same at full width through their entry points (`tools_main_path`),
-     each with its kernel launches set to 0 just before, read just after and
-     checked against the structure: (a) sample() of 64 images at 1024^2;
-     (b) project() of a 1024^2 target, 100 steps, LPIPS-VGG on 256^2
-     resizes (17 forward + 17 gradient launches per step); (c) a 10 s
+     each with its kernel launches (upfirdn2d's too) set to 0 just before,
+     read just after and checked against the structure: (a) sample() of 64
+     images at 1024^2; (b) project() of a 1024^2 target, 100 steps,
+     LPIPS-VGG on 256^2 resizes (17 forward + 17 gradient launches, 32
+     upfirdn2d launches per step); (c) a 10 s
      interpolation_video() with segmented noise; (d) generate_and_select()
      of 24 images; (e) generate(stylegan1=True) over 4 s with the FFHQ
      StyleGAN1, and load_tf_generator() of a full-width Gs pickle; (f) the
@@ -112,7 +118,7 @@ Phases, each printing JSON lines:
      configuration under a coordinator (reg_chunks 3 resolved, launches
      counted); render(mesh=[cuda:0]) against render() at 1024^2;
  19. generate() with the temper and rewrite_demo plugins at 1024^2 for 2 s
-     (`plugins`), the forward kernel's launches counted;
+     (`plugins`), the forward kernel's and upfirdn2d's launches counted;
  20. the lucidrains family, card against CPU (`lucidrains_card_vs_cpu`): a
      narrow model (32^2, capacity 4, attention and fq at layer 1) with the
      same weights and draws: G and D forwards, then three steps (the
@@ -126,29 +132,31 @@ Phases, each printing JSON lines:
  22. tensor-parallel synthesis on the card (`tp_on_card`): the FFHQ-1024
      generator under shard_generator_params on a (1, 1) mesh over NCCL at
      world size 1, frames against the unsharded generator's at batch 8, the
-     forward kernel's 8 + 17 launches counted, time with and without the
-     sharding;
+     forward kernel's 8 + 17 and upfirdn2d's 16 launches counted, time with
+     and without the sharding;
  23. the JAX package's flagship training configuration at full width
      (`train_1024_main_path`): synthetic 1024^2 raw shards -> the train
      CLI's default at --size 1024 --batch_size 12 (ADA with the fft and
      1x-grid warps, lookahead; the automatic rule resolves reg_chunks 3 and
      remat_synth on), 4 steps in bf16 and 2 in fp32 exact, every step's
-     launches of both kernels checked against the structure (remat's
+     launches of the three kernels checked against the structure (remat's
      recomputed synthesis included); s/step by kind, images/s, peak memory,
      device ms per phase of the R1 + path step; one bf16 R1 + path step
      with --reg_chunks 1 --remat_synth 0 for its peak memory; then both
      kernels against their plain versions at every launch shape of an
      R1 + path step in fp32 and bf16 (`kernel_train_shapes`,
      `kernel_train_step` with size 1024).
-The line before the last lists both kernels (`kernels`, with their launches
-in the VAE trainer's run of phase 16 and times summed over one fp32 VAE step;
-beside them `train_1024`, the launches of phase 23's runs and the times
-summed over one of its R1 + path steps in each precision, and
-`ada_run_launches`; `kernels_train` keeps the fp32 ADA run's numbers of
-earlier slices); the last line is
-{"ok": true, "device": {...}}. Any failure exits non-zero before it; without
-a CUDA card, or without the package beside this file, the script fails at
-once.
+The line before the last lists the kernels (`kernels`): the two bias-act
+kernels with their launches in the VAE trainer's run of phase 16 and times
+summed over one fp32 VAE step, beside them `train_1024`, the launches of
+phase 23's runs and the times summed over one of its R1 + path steps in
+each precision, and `ada_run_launches`; then upfirdn2d, with its launches
+in phase 4's fp32 render run and times summed over one render batch's 16
+sites, a 256^2 step's sites, and its launches in the ADA and flagship runs
+(`kernels_train` keeps the fp32 ADA run's numbers of earlier slices). The
+last line is {"ok": true, "device": {...}}. Any failure exits non-zero
+before it; without a CUDA card, or without the package beside this file,
+the script fails at once.
 """
 
 from __future__ import annotations
@@ -316,6 +324,113 @@ def phase_kernels():
     return per_batch
 
 
+def fir_sites_render(batch: int = 8, size: int = 1024) -> list:
+    """(site, input shape, taps gain, up, down, pad) of one synthesis forward:
+    the blur after each transposed conv (a 2r + 1 plane to r) and each
+    ToRGB's Upsample of the 3-channel skip, r = 8 .. size."""
+    from maua_tpu_torch.models import channel_map
+
+    ch = channel_map(CHANNEL_MULTIPLIER)
+    sites, res = [], 8
+    while res <= size:
+        sites.append((f"blur_{res}", (batch, ch[res], res + 1, res + 1), 4.0, 1, 1, (1, 1, 1, 1)))
+        sites.append((f"upsample_{res}", (batch, 3, res // 2, res // 2), 4.0, 2, 1, (2, 1, 2, 1)))
+        res *= 2
+    return sites
+
+
+def fir_sites_train(batch: int = 12, size: int = 256) -> list:
+    """The sites of a training step at `size`: G's (batch) forward and
+    backward geometries, and D's (the fused pass, 2 x batch): each ResBlock's
+    blur before the strided conv (pad 2, 2), its skip's (1, 1), and their
+    backward geometries."""
+    from maua_tpu_torch.models import channel_map
+
+    ch = channel_map(CHANNEL_MULTIPLIER)
+    sites = []
+    for name, shape, gain, up, down, pad in fir_sites_render(batch, size):
+        sites.append((name, shape, gain, up, down, pad))
+        n, c, h, w = shape
+        if up == 1:
+            sites.append((name + "_back", (n, c, h - 1, w - 1), gain, 1, 1, (2, 2, 2, 2)))
+        else:
+            sites.append((name + "_back", (n, c, 2 * h, 2 * w), gain, 1, 2, (1, 1, 1, 1)))
+    res = size
+    while res >= 8:
+        shape = (2 * batch, ch[res], res, res)
+        sites.append((f"d_blur_{res}", shape, 1.0, 1, 1, (2, 2, 2, 2)))
+        sites.append((f"d_blur_{res}_back", (2 * batch, ch[res], res + 1, res + 1), 1.0, 1, 1, (1, 1, 1, 1)))
+        sites.append((f"d_skip_{res}", shape, 1.0, 1, 1, (1, 1, 1, 1)))
+        sites.append((f"d_skip_{res}_back", (2 * batch, ch[res], res - 1, res - 1), 1.0, 1, 1, (2, 2, 2, 2)))
+        res //= 2
+    return sites
+
+
+def fir_case(shape, gain, up, down, pad, dtype, seed=0) -> dict:
+    """The upfirdn2d kernel against its plain form on one input: the largest
+    error (fp32: rtol = atol = 1e-5; bf16: two ulps), kernel_ms, plain_ms
+    (the padded copy and the depthwise conv), library_ms (F.conv2d's
+    depthwise conv alone, on an input already stuffed and padded: the
+    yardstick the port no longer calls), bound_ms (input read once and
+    output written once at 3.35 TB/s), all by graph replay."""
+    import torch.nn.functional as F
+
+    from maua_tpu_torch.ops.upfirdn2d import setup_filter, upfirdn2d_kernel, upfirdn2d_plain
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    k = setup_filter([1, 3, 3, 1], gain=gain).cuda()
+    ups, downs = (up, up), (down, down)
+    with tf32_off():
+        got = upfirdn2d_kernel(x, k, ups, downs, pad)
+        want = upfirdn2d_plain(x, k, ups, downs, pad)
+        torch.cuda.synchronize()
+        tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else dict(rtol=1.6e-2, atol=1e-2)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        err = (got.float() - want.float()).abs().max().item()
+        n, c, h, w = shape
+        xs = x
+        if up > 1:
+            xs = F.pad(x.reshape(n, c, h, 1, w, 1), [0, up - 1, 0, 0, 0, up - 1]).reshape(n, c, h * up, w * up)
+        xs = F.pad(xs, [pad[0], pad[1], pad[2], pad[3]])
+        kd = torch.flip(k, (0, 1)).to(dtype)[None, None].expand(c, 1, 4, 4).contiguous()
+        moved = (x.numel() + got.numel()) * x.element_size()
+        out = dict(
+            out_shape=list(got.shape),
+            max_abs_err=err,
+            kernel_ms=graph_ms(lambda: upfirdn2d_kernel(x, k, ups, downs, pad)),
+            plain_ms=graph_ms(lambda: upfirdn2d_plain(x, k, ups, downs, pad)),
+            library_ms=graph_ms(lambda: F.conv2d(xs, kd, stride=down, groups=c)),
+            bound_ms=moved / HBM_BYTES_PER_S * 1e3,
+        )
+    out["bound_share"] = out["bound_ms"] / out["kernel_ms"]
+    return out
+
+
+def phase_kernels_upfirdn2d() -> dict:
+    """The upfirdn2d kernel at render's sites (batch 8, 1024^2) and at a 256^2
+    training step's (batch 12, D's fused pass 24), fp32 and bf16: one row a
+    site and the sums."""
+    totals = {}
+    for label, sites in (("render_1024_b8", fir_sites_render()), ("train_256_b12", fir_sites_train())):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            tot = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, n_sites=0)
+            for site, shape, gain, up, down, pad in sites:
+                case = fir_case(shape, gain, up, down, pad, dtype)
+                emit(phase="kernel", kernel="upfirdn2d", sites=label, site=site, shape=list(shape), up=up, down=down,
+                     pad=list(pad), dtype=name, bound_by="bytes", **case)
+                tot["max_abs_err"] = max(tot["max_abs_err"], case["max_abs_err"])
+                for k, v in (("ms", "kernel_ms"), ("plain_ms", "plain_ms"), ("library_ms", "library_ms"),
+                             ("bound_ms", "bound_ms")):
+                    tot[k] += case[v]
+                tot["n_sites"] += 1
+            tot["bound_share"] = tot["bound_ms"] / tot["ms"]
+            emit(phase="kernel_sites", kernel="upfirdn2d", sites=label, dtype=name, **tot)
+            totals[f"{label}_{name}"] = tot
+    return totals
+
+
 # ---------------------------------------------------------------- phases 3, 4
 def fabricate_checkpoint(path: str, size: int, seed: int) -> None:
     """A rosinality-format g_ema of the full-width config, weights from numpy:
@@ -423,6 +538,7 @@ def phase_main_path(tmp: str):
     from maua_tpu_torch.ops import fused_act
     from maua_tpu_torch.render import render
 
+    fir = fir_module()
     CountingWriter = install_counting_writer()
 
     path = os.path.join(tmp, "g1024.pt")
@@ -450,18 +566,20 @@ def phase_main_path(tmp: str):
         CountingWriter.written = []
 
         # ---- the main path, counted ----
-        fused_act.launches = fused_act.grad_launches = 0
+        fused_act.launches = fused_act.grad_launches = fir.launches = 0
         t0 = time.perf_counter()
         tl = gen.mean_latent(torch.Generator(device="cuda").manual_seed(5))
         render(gen, None, latents, noise, out, batch_size=batch, fps=24, truncation=trunc, truncation_latent=tl)
         render_s = time.perf_counter() - t0
-        launches = fused_act.launches
+        launches, fir_launches = fused_act.launches, fir.launches
 
         expected = N_MLP + 17 * (n_frames // batch)
+        fir_expected = fir_per_pass(1024) * (n_frames // batch)  # mean_latent runs no synthesis
         require(len(CountingWriter.written) == n_frames, f"{label}: {len(CountingWriter.written)} frames written")
         require(min(CountingWriter.written) > 0, f"{label}: a written frame is constant")
         require(launches == expected, f"{label}: fused_bias_act launched {launches} times, expected {expected}")
         require(fused_act.grad_launches == 0, f"{label}: render launched the gradient kernel")
+        require(fir_launches == fir_expected, f"{label}: upfirdn2d launched {fir_launches} times, expected {fir_expected}")
         lat_d = latents
         noise_d = [None if n is None else torch.from_numpy(n).cuda() for n in noise]
         trunc_d = torch.from_numpy(trunc).cuda()
@@ -472,10 +590,10 @@ def phase_main_path(tmp: str):
         require(tuple(img.shape) == (batch, 3, 1024, 1024), f"{label}: image shape {tuple(img.shape)}")
         require(bool(torch.isfinite(img).all()), f"{label}: image is finite")
         fps = synth_fps(gen, lat_d, noise_d, trunc_d, tl, batch)
-        results[label] = dict(launches=launches, render_fps=n_frames / render_s, synth_fps=fps)
+        results[label] = dict(launches=launches, fir_launches=fir_launches, render_fps=n_frames / render_s, synth_fps=fps)
         emit(phase="main_path", config=label, size=1024, style_dim=STYLE_DIM, n_mlp=N_MLP,
              channel_multiplier=CHANNEL_MULTIPLIER, frames=n_frames, batch=batch, launches=launches,
-             expected_launches=expected, load_seconds=load_s, render_seconds=render_s,
+             expected_launches=expected, upfirdn2d_launches=fir_launches, load_seconds=load_s, render_seconds=render_s,
              render_fps=n_frames / render_s, synth_fps=fps, writer=CountingWriter.backend_used,
              image_abs_max=img.abs().max().item())
         if label in ("fp32_exact", "bf16"):
@@ -585,6 +703,54 @@ def expected_launches(cfg, step: int) -> tuple[int, int]:
     if cfg.path_regularize > 0 and step % cfg.g_reg_every == 0:
         fwd, grad = fwd + a * k * synth, grad + a * k * (3 * n_layers + 2 * n_mlp)
     return fwd, grad
+
+
+def fir_module():
+    """ops/upfirdn2d.py, whose `launches` counts the kernel's launches (the
+    package exports a function of that name)."""
+    return importlib.import_module("maua_tpu_torch.ops.upfirdn2d")
+
+
+def fir_per_pass(size: int) -> int:
+    """upfirdn2d calls of one synthesis forward at size^2 (the blur after each
+    transposed conv and each ToRGB's Upsample of the skip, 8^2 .. size^2),
+    and as many in one D forward (each ResBlock's blur before its strided
+    conv and its skip's)."""
+    return 2 * (int(math.log2(size)) - 2)
+
+
+def expected_fir_launches(cfg, step: int) -> int:
+    """upfirdn2d kernel launches of train step `step`, from the model's
+    structure: a call launches once forward and once in each backward that
+    passes it. With F = fir_per_pass(size): the D phase runs G without grad
+    (F) and D forward and backward on each of its passes (2F each); the G
+    phase G and D forward and backward (4F); R1 runs D forward, backward and,
+    in its double backward, the backward's backward and the forward node
+    again (4F); the path penalty stops at W+: G forward, backward and the
+    backward's backward (3F). bCR, the contrastive regularizer, remat_synth,
+    num_accumulate and reg_chunks add as in expected_launches (the hidden
+    layer holds all of D's calls). ADA's fft and matmul warps launch none;
+    its conv warp is not counted here."""
+    require(not cfg.augment or cfg.ada_warp_method in ("fft", "matmul"),
+            f"expected_fir_launches counts no conv warp (ada_warp_method {cfg.ada_warp_method})")
+    f = fir_per_pass(cfg.size)
+    a, k = cfg.num_accumulate, max(1, cfg.reg_chunks)
+    d_passes = 1 if cfg.batch_size % 4 == 0 and cfg.bcr_weight == 0 and cfg.contrastive_weight == 0 else 2
+    d_passes += 2 if cfg.bcr_weight > 0 else 0
+    n = a * (f + 2 * d_passes * f) + a * 4 * f + (a * f if cfg.remat_synth else 0)
+    if cfg.contrastive_weight > 0:
+        n += a * (4 + (2 if cfg.contrastive_momentum > 0 else 4)) * f
+    if cfg.r1 > 0 and step % cfg.d_reg_every == 0:
+        n += a * k * 4 * f
+    if cfg.path_regularize > 0 and step % cfg.g_reg_every == 0:
+        n += a * k * 3 * f
+    return n
+
+
+def launches_per_kind(cfg, kinds) -> dict:
+    """{kind: {forward, gradient, upfirdn2d}} for each (kind, step)."""
+    return {k: dict(zip(("forward", "gradient"), expected_launches(cfg, i)), upfirdn2d=expected_fir_launches(cfg, i))
+            for k, i in kinds}
 
 
 def step_kind(cfg, step: int) -> str:
@@ -802,8 +968,7 @@ def phase_train_main_path(tmp: str) -> dict:
                                                                        "s_step"))
         require(set(s_step) == {"r1_path", "path", "plain"}, f"{label}: step kinds {sorted(s_step)}")
         cycle = (s_step["r1_path"] + 3 * s_step["path"] + 12 * s_step["plain"]) / 16  # d_reg_every 16, g_reg_every 4
-        per_kind = {k: dict(zip(("forward", "gradient"), expected_launches(cfg, i)))
-                    for k, i in (("r1_path", 0), ("path", 4), ("plain", 1))}
+        per_kind = launches_per_kind(cfg, (("r1_path", 0), ("path", 4), ("plain", 1)))
 
         # checkpoint -> load_generator -> render(): training feeds the render path
         ckpt = latest_checkpoint(run)
@@ -851,7 +1016,8 @@ def phase_train_main_path(tmp: str) -> dict:
         results[label] = dict(launches=launches, s_step=s_step, cycle_s=cycle, wall_s=wall, peak_gb=peak_gb,
                               phase_ms=phase_ms, profile=profile)
         emit(phase="train_main_path", config=label, size=TRAIN_SIZE, batch=TRAIN_BATCH, channel_multiplier=CHANNEL_MULTIPLIER,
-             channel_max=512, steps=TRAIN_STEPS, launches=dict(zip(("forward", "gradient"), launches)),
+             channel_max=512, steps=TRAIN_STEPS, launches=dict(zip(("forward", "gradient"), launches),
+                                                               upfirdn2d=r["fir_launches"]),
              launches_per_step_kind=per_kind, s_per_step=s_step, imgs_per_s={k: TRAIN_BATCH / v for k, v in s_step.items()},
              imgs_per_s_16_step_cycle=TRAIN_BATCH / cycle, run_wall_s=wall, peak_memory_gb=peak_gb,
              phase_device_ms=phase_ms, losses_last={k: lines[-1][k] for k in ("Generator", "Discriminator")},
@@ -863,8 +1029,8 @@ def phase_train_main_path(tmp: str) -> dict:
 
 def r1_with_autograd_upfirdn2d(state, real) -> None:
     """R1's D gradients at full width, once through upfirdn2d's autograd
-    Function and once with autograd differentiating its depthwise conv
-    directly (the form the Function replaced, whose double backward computes
+    Function (the kernel) and once with autograd differentiating the plain
+    form's depthwise conv directly (the form the Function replaced, whose double backward computes
     the FIR filter's gradient one channel at a time): device time of each and
     the largest difference of the gradients, relative to the tensor's max
     abs (limit 1e-4: the same sums in another order)."""
@@ -876,7 +1042,7 @@ def r1_with_autograd_upfirdn2d(state, real) -> None:
     fir = importlib.import_module("maua_tpu_torch.ops.upfirdn2d")  # the package exports a function of that name
 
     def by_autograd(x, kernel, up=1, down=1, pad=(0, 0)):
-        return fir._upfirdn2d(x, kernel.detach(), fir._as_pair(up), fir._as_pair(down), fir._as_pad(pad))
+        return fir.upfirdn2d_plain(x, kernel.detach(), fir._as_pair(up), fir._as_pair(down), fir._as_pad(pad))
 
     params = list(state.d.parameters())
 
@@ -1220,11 +1386,12 @@ def phase_train_ada_main_path(tmp: str) -> dict:
     for label, extra in (("fp32_exact", ()), ("bf16", ("--bf16",))):
         r = counted_run(f"ada_{label}", TRAIN_STEPS, "--augment_p", "0.5", *extra)
         cycle = (r["s_step"]["r1_path"] + 3 * r["s_step"]["path"] + 12 * r["s_step"]["plain"]) / 16
-        per_kind = {k: dict(zip(("forward", "gradient"), expected_launches(r["cfg"], i)))
-                    for k, i in (("r1_path", 0), ("path", 4), ("plain", 1))}
-        results[f"a_{label}"] = dict(launches=r["launches"], s_step=r["s_step"], cycle_s=cycle, peak_gb=r["peak_gb"])
+        per_kind = launches_per_kind(r["cfg"], (("r1_path", 0), ("path", 4), ("plain", 1)))
+        results[f"a_{label}"] = dict(launches=r["launches"], fir_launches=r["fir_launches"], s_step=r["s_step"],
+                                     cycle_s=cycle, peak_gb=r["peak_gb"])
         emit(phase="train_ada_main_path", run="a", config=label, size=TRAIN_SIZE, batch=TRAIN_BATCH, augment_p=0.5, warp="fft",
-             steps=TRAIN_STEPS, launches=dict(zip(("forward", "gradient"), r["launches"])), launches_per_step_kind=per_kind,
+             steps=TRAIN_STEPS, launches=dict(zip(("forward", "gradient"), r["launches"]), upfirdn2d=r["fir_launches"]),
+             launches_per_step_kind=per_kind,
              s_per_step=r["s_step"], imgs_per_s={k: TRAIN_BATCH / v for k, v in r["s_step"].items()},
              imgs_per_s_16_step_cycle=TRAIN_BATCH / cycle, run_wall_s=r["wall_s"], peak_memory_gb=r["peak_gb"],
              losses_last={k: r["lines"][-1][k] for k in ("Generator", "Discriminator")})
@@ -1265,8 +1432,10 @@ def phase_train_ada_main_path(tmp: str) -> dict:
     require(int(r["state"].cl_state.queue_filled) == 48, f"(c) queue filled {int(r['state'].cl_state.queue_filled)}")
     results["c"] = dict(s_step=r["s_step"], launches=r["launches"], peak_gb=r["peak_gb"])
     emit(phase="train_ada_main_path", run="c", config="bf16", bcr=1.0, contrastive=0.1, contrastive_momentum=0.99,
-         contrastive_queue=48, steps=4, launches=dict(zip(("forward", "gradient"), r["launches"])),
-         launches_per_step=[expected_launches(r["cfg"], i) for i in range(4)], s_per_step=r["s_step"],
+         contrastive_queue=48, steps=4,
+         launches=dict(zip(("forward", "gradient"), r["launches"]), upfirdn2d=r["fir_launches"]),
+         launches_per_step=[(*expected_launches(r["cfg"], i), expected_fir_launches(r["cfg"], i)) for i in range(4)],
+         s_per_step=r["s_step"],
          peak_memory_gb=r["peak_gb"], losses={k: [x[k] for x in r["lines"]] for k in ("Generator", "Discriminator")})
     del r
     torch.cuda.empty_cache()
@@ -1486,6 +1655,7 @@ def phase_generate_main_path(tmp: str) -> dict:
     ckpt = os.path.join(tmp, f"g{GEN_SIZE}.pt")
     wav = write_wav(os.path.join(tmp, "track.wav"), synth_track(TRACK_S, seed=8))
     per_batch = 2 * (int(math.log2(GEN_SIZE)) - 2) + 1  # StyledConv activations of one forward from W+
+    fir = fir_module()
     results = {}
 
     # ---- (a) the default plugin over the whole track, twice: the first run
@@ -1549,9 +1719,10 @@ def phase_generate_main_path(tmp: str) -> dict:
             batches = -(-n_frames // kw["batch"])
             # generate_latents maps 12 z (8 launches); mean_latent only when truncated (8); 17 per render batch
             expected = N_MLP + (N_MLP if kw.get("truncation", 1.0) != 1.0 else 0) + per_batch * batches
+            fir_expected = fir_per_pass(GEN_SIZE) * batches  # the same layers at any out_size
             CountingWriter.written = []
             torch.cuda.synchronize()
-            fused_act.launches = fused_act.grad_launches = 0
+            fused_act.launches = fused_act.grad_launches = fir.launches = 0
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(io.StringIO()):
                 fwd, _ = record_launch_shapes(lambda: generate(ckpt, wav, fps=30, output_file=os.path.join(tmp, f"gen_{label}.mp4"),
@@ -1562,11 +1733,12 @@ def phase_generate_main_path(tmp: str) -> dict:
             shapes[label] = fwd
             require(launches == expected, f"({label}) fused_bias_act launched {launches} times, expected {expected}")
             require(fused_act.grad_launches == 0, f"({label}) generate launched the gradient kernel")
+            require(fir.launches == fir_expected, f"({label}) upfirdn2d launched {fir.launches} times, expected {fir_expected}")
             require(len(CountingWriter.written) == n_frames and min(CountingWriter.written) > 0,
                     f"({label}) {len(CountingWriter.written)} frames written")
             latents, noise = calls["timelines"]
             results[label] = dict(frames=n_frames, batch=kw["batch"], out_size=kw["out_size"], launches=launches,
-                                  expected_launches=expected, wall_s=wall, frames_per_s=n_frames / wall,
+                                  expected_launches=expected, upfirdn2d_launches=fir.launches, wall_s=wall, frames_per_s=n_frames / wall,
                                   preprocess_s=calls["render_start"] - t0, render_s=calls["render_s"],
                                   render_fps=n_frames / calls["render_s"], staging_round_trip_s=staging_seconds(latents, noise),
                                   timeline_bytes=latents.numel() * 4 + sum(0 if n is None else n.numel() * 4 for n in noise),
@@ -1842,22 +2014,24 @@ def phase_tools_card_vs_cpu(tmp: str) -> None:
                    "of the largest (noise maps as one vector)")
 
 
-def counted(fn, label: str, fwd: int, grad: int = 0):
+def counted(fn, label: str, fwd: int, grad: int = 0, fir: int = 0):
     """(result, seconds, forward Counter, gradient Counter) of fn() on the
     card, the launch counters set to 0 just before and read just after, and
-    required to equal the counts derived from the structure."""
+    required to equal the counts derived from the structure: `fwd` and
+    `grad` of the bias-act kernels, `fir` of upfirdn2d."""
     from maua_tpu_torch.ops import fused_act
 
+    fir_ops = fir_module()
     torch.cuda.synchronize()
-    fused_act.launches = fused_act.grad_launches = 0
+    fused_act.launches = fused_act.grad_launches = fir_ops.launches = 0
     box = {}
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()) as buf:
         shapes = record_launch_shapes(lambda: box.setdefault("out", fn()))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    got = (fused_act.launches, fused_act.grad_launches)
-    require(got == (fwd, grad), f"{label}: launches {got}, derived from the structure {(fwd, grad)}")
+    got = (fused_act.launches, fused_act.grad_launches, fir_ops.launches)
+    require(got == (fwd, grad, fir), f"{label}: launches {got}, derived from the structure {(fwd, grad, fir)}")
     return box["out"], seconds, shapes, buf.getvalue()
 
 
@@ -1891,6 +2065,7 @@ def phase_tools_main_path(tmp: str, ada_shards: str) -> dict:
     ckpt = os.path.join(tmp, "g1024.pt")
     per_w = 2 * (int(math.log2(TOOLS_SIZE)) - 2) + 1  # StyledConvs of one forward from W+
     per_z = N_MLP + per_w
+    fir_w = fir_per_pass(TOOLS_SIZE)  # upfirdn2d calls of one synthesis
     CountingWriter = install_counting_writer()
     results, shapes = {}, {}
 
@@ -1898,7 +2073,8 @@ def phase_tools_main_path(tmp: str, ada_shards: str) -> dict:
     pics, batch = 64, 8
     out_dir = os.path.join(tmp, "sample")
     _, s, shapes["a"], _ = counted(lambda: sample(ckpt, pics=pics, sample_batch=batch, truncation=0.7, out_dir=out_dir,
-                                                  seed=1, device="cuda"), "(a) sample", N_MLP + (pics // batch) * per_z)
+                                                  seed=1, device="cuda"), "(a) sample", N_MLP + (pics // batch) * per_z,
+                                  fir=(pics // batch) * fir_w)
     from PIL import Image
 
     pngs = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
@@ -1920,7 +2096,7 @@ def phase_tools_main_path(tmp: str, ada_shards: str) -> dict:
     steps = 100
     (latent, noises, hist), s, shapes["b"], _ = counted(
         lambda: project(gen, target, n_steps=steps, distance_fn=lpips_256, log_every=10), "(b) project",
-        N_MLP + per_w * steps, per_w * steps)
+        N_MLP + per_w * steps, per_w * steps, fir=2 * fir_w * steps)
     require(latent.shape == (1, gen.n_latent, STYLE_DIM) and len(noises) == gen.num_layers, "(b) shapes")
     require(all(np.isfinite(h["loss"]) for h in hist) and hist[-1]["dist"] < hist[0]["dist"],
             f"(b) the distance did not fall: {[h['dist'] for h in hist]}")
@@ -1936,7 +2112,8 @@ def phase_tools_main_path(tmp: str, ada_shards: str) -> dict:
     out, s, _, _ = counted(lambda: interpolation_video(ckpt, n_latents=8, duration=10.0, fps=30, batch=batch,
                                                         noise_mode="segmented", output_file=os.path.join(tmp, "interp.mp4"),
                                                         device="cuda"),
-                           "(c) interpolation_video", N_MLP + -(-n_frames // batch) * per_w)
+                           "(c) interpolation_video", N_MLP + -(-n_frames // batch) * per_w,
+                           fir=-(-n_frames // batch) * fir_w)
     require(len(CountingWriter.written) == n_frames and min(CountingWriter.written) > 0, f"(c) {len(CountingWriter.written)} frames")
     results["c_interpolate"] = dict(frames=n_frames, seconds=s, frames_per_s=n_frames / s, writer=CountingWriter.backend_used)
     emit(phase="tools_main_path", run="c_interpolate", size=TOOLS_SIZE, noise="segmented", **results["c_interpolate"])
@@ -1945,7 +2122,7 @@ def phase_tools_main_path(tmp: str, ada_shards: str) -> dict:
     sel_dir = os.path.join(tmp, "selection")
     outs, s, _, _ = counted(lambda: generate_and_select(ckpt, n=24, out_dir=sel_dir, picks={"intro": [0, 3], "drop": [5]},
                                                         batch=8, device="cuda"),
-                            "(d) generate_and_select", 2 * N_MLP + 3 * per_w)
+                            "(d) generate_and_select", 2 * N_MLP + 3 * per_w, fir=3 * fir_w)
     require(np.load(outs["all"]).shape == (24, 18, STYLE_DIM) and np.load(outs["intro"]).shape == (2, 18, STYLE_DIM),
             "(d) latent files")
     results["d_select"] = dict(images=24, seconds=s, images_per_s=24 / s)
@@ -1969,7 +2146,7 @@ def phase_tools_main_path(tmp: str, ada_shards: str) -> dict:
     tf_gen, load_s, _, _ = counted(lambda: load_tf_generator(pkl, device="cuda"), "(e) load_tf_generator", 0)
     with torch.no_grad():
         img, _ = counted(lambda: tf_gen(torch.zeros(2, STYLE_DIM, device="cuda").normal_(), randomize_noise=False),
-                         "(e) TF-pickle generator forward", per_z)[0]
+                         "(e) TF-pickle generator forward", per_z, fir=fir_w)[0]
     require(img.shape == (2, 3, TOOLS_SIZE, TOOLS_SIZE) and bool(torch.isfinite(img).all()), "(e) TF-pickle generator image")
     results["e_tf_pickle"] = dict(bytes=os.path.getsize(pkl), write_s=write_s, load_tf_generator_s=load_s)
     emit(phase="tools_main_path", run="e_stylegan1", size=TOOLS_SIZE, window_s=4.0, **results["e_stylegan1"],
@@ -1985,8 +2162,8 @@ def phase_tools_main_path(tmp: str, ada_shards: str) -> dict:
     torch.save(vgg16_features_sd(32), lp_w)
     fid_n, fid_b, ppl_n, ppl_b = 1024, 32, 256, 16
 
-    def cli(argv, label, fwd):
-        rc, s, sh, stdout = counted(lambda: eval_cli.main(argv), label, fwd)
+    def cli(argv, label, fwd, fir=0):
+        rc, s, sh, stdout = counted(lambda: eval_cli.main(argv), label, fwd, fir=fir)
         require(rc == 0, f"{label}: exit {rc}")
         return json.loads(stdout.strip().splitlines()[-1]), s, sh
 
@@ -1996,14 +2173,16 @@ def phase_tools_main_path(tmp: str, ada_shards: str) -> dict:
         inc, s_inc, _ = cli(["inception", "--path", eval_shards, "--size", "256", "--batch", "64", "--out", stats,
                              "--inception_weights", inc_w, *common], f"(f) inception {prec}", 0)
         fid, s_fid, sh_fid = cli(["fid", "--ckpt", ckpt, "--stats", stats, "--n_sample", str(fid_n), "--batch", str(fid_b),
-                                  "--inception_weights", inc_w, *common], f"(f) fid {prec}", N_MLP + (fid_n // fid_b) * per_z)
+                                  "--inception_weights", inc_w, *common], f"(f) fid {prec}", N_MLP + (fid_n // fid_b) * per_z,
+                                 fir=(fid_n // fid_b) * fir_w)
         require(inc["pretrained"] and inc["n_features"] == 2048, f"(f) inception {inc}")
         require(np.isfinite(fid["fid"]), f"(f) {fid}")
         results[f"f_{prec}"] = dict(inception_images_per_s=512 / s_inc, inception_s=s_inc, fid=fid["fid"],
                                     fid_samples_per_s=fid_n / s_fid, fid_s=s_fid)
         if prec == "exact":  # ppl runs exact only
             ppl, s_ppl, sh_ppl = cli(["ppl", "--ckpt", ckpt, "--n_sample", str(ppl_n), "--batch", str(ppl_b),
-                                      "--lpips_weights", lp_w, *common], "(f) ppl exact", (ppl_n // ppl_b) * per_z)
+                                      "--lpips_weights", lp_w, *common], "(f) ppl exact", (ppl_n // ppl_b) * per_z,
+                                     fir=(ppl_n // ppl_b) * fir_w)
             require(np.isfinite(ppl["ppl"]) and ppl["distance"] == "lpips-vgg", f"(f) {ppl}")
             shapes["f_fid"], shapes["f_ppl"] = sh_fid, sh_ppl
             results["f_exact"].update(ppl=ppl["ppl"], ppl_pairs_per_s=ppl_n / s_ppl, ppl_s=s_ppl)
@@ -2034,6 +2213,8 @@ def phase_tools_main_path(tmp: str, ada_shards: str) -> dict:
     require([x["step"] for x in evals] == [2] and np.isfinite(evals[0]["SWD"]), f"(g) eval lines {evals}")
     require(evals[0]["fused_bias_act launches"] == N_MLP + 4 * per_g,
             f"(g) eval launches {evals[0]['fused_bias_act launches']}, derived {N_MLP + 4 * per_g}")
+    require(evals[0]["upfirdn2d launches"] == 4 * fir_per_pass(TRAIN_SIZE),
+            f"(g) eval upfirdn2d launches {evals[0]['upfirdn2d launches']}, derived {4 * fir_per_pass(TRAIN_SIZE)}")
     results["g_train_eval"] = dict(steps=3, wall_s=wall, swd=evals[0]["SWD"], eval_s=evals[0]["eval_seconds"],
                                    eval_launches=evals[0]["fused_bias_act launches"])
     emit(phase="tools_main_path", run="g_train_eval", size=TRAIN_SIZE, batch=TRAIN_BATCH, metric="swd", reals=48,
@@ -2452,13 +2633,15 @@ def phase_parallel_on_card(tmp: str, ada_shards: str) -> dict:
 def phase_plugins(tmp: str) -> dict:
     """generate() with the temper and the rewrite_demo example plugins at
     1024^2 for 2 s of the phase-12 track (60 frames, batch 8): frames/s end
-    to end and the forward kernel's launches, set to 0 just before and read
-    just after: 8 (generate_latents) + 17 per render batch."""
+    to end and the launches, set to 0 just before and read just after: 8
+    (generate_latents) + 17 per render batch of the forward kernel, 16 per
+    render batch of upfirdn2d."""
     from maua_tpu_torch import examples
     from maua_tpu_torch.ops import fused_act
     from maua_tpu_torch.pipeline import generate
     from maua_tpu_torch.pipeline.cli import load_plugin
 
+    fir = fir_module()
     ckpt, wav = os.path.join(tmp, f"g{GEN_SIZE}.pt"), os.path.join(tmp, "track.wav")
     per_batch = 2 * (int(math.log2(GEN_SIZE)) - 2) + 1
     CountingWriter = install_counting_writer()
@@ -2467,9 +2650,10 @@ def phase_plugins(tmp: str) -> dict:
         funcs, override = load_plugin(os.path.join(os.path.dirname(examples.__file__), f"{name}.py"))
         n_frames, batch = 60, 8
         expected = N_MLP + per_batch * (-(-n_frames // batch))
+        fir_expected = fir_per_pass(GEN_SIZE) * (-(-n_frames // batch))
         CountingWriter.written = []
         torch.cuda.synchronize()
-        fused_act.launches = fused_act.grad_launches = 0
+        fused_act.launches = fused_act.grad_launches = fir.launches = 0
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
             generate(ckpt, wav, offset=60.0, duration=2.0, fps=30, batch=batch,
@@ -2477,8 +2661,8 @@ def phase_plugins(tmp: str) -> dict:
                      **{"out_size": GEN_SIZE, **funcs, **override})
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        require((fused_act.launches, fused_act.grad_launches) == (expected, 0),
-                f"{name}: launches {(fused_act.launches, fused_act.grad_launches)}, derived ({expected}, 0)")
+        got = (fused_act.launches, fused_act.grad_launches, fir.launches)
+        require(got == (expected, 0, fir_expected), f"{name}: launches {got}, derived ({expected}, 0, {fir_expected})")
         require(len(CountingWriter.written) == n_frames and min(CountingWriter.written) > 0, f"{name}: frames written")
         results[name] = dict(frames=n_frames, wall_s=wall, frames_per_s=n_frames / wall, launches=expected)
         emit(phase="plugins", plugin=name, size=GEN_SIZE, batch=batch, **results[name])
@@ -2589,6 +2773,7 @@ def phase_lucidrains_main_path(tmp: str) -> dict:
     from maua_tpu_torch.ops import fused_act
     from maua_tpu_torch.train import LucidrainsConfig, LucidrainsTrainer
 
+    fir = fir_module()
     pool = real_pool(LUC_STEPS * 4, 128, seed=21)
     results = {}
     for label, over in (("default", {}), ("attn_fq", dict(attn_layers=(1,), fq_layers=(1,)))):
@@ -2596,15 +2781,15 @@ def phase_lucidrains_main_path(tmp: str) -> dict:
         tr = LucidrainsTrainer(cfg, models_dir=os.path.join(tmp, "lucidrains"), name=label, device="cuda")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fused_act.launches = fused_act.grad_launches = 0
+        fused_act.launches = fused_act.grad_launches = fir.launches = 0
         times, logs = [], []
         for step in range(LUC_STEPS):
             t0 = time.perf_counter()
             logs.append(tr.train(pool[step * 4:(step + 1) * 4][None]))
             times.append(time.perf_counter() - t0)
-        launches = (fused_act.launches, fused_act.grad_launches)
+        launches = (fused_act.launches, fused_act.grad_launches, fir.launches)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        require(launches == (0, 0), f"lucidrains {label}: the kernels launched {launches} times; the family runs neither")
+        require(launches == (0, 0, 0), f"lucidrains {label}: the kernels launched {launches} times; the family runs none")
         require(all(math.isfinite(v) for m in logs for v in m.values()), f"lucidrains {label}: a loss is not finite")
         require(logs[0]["R1"] > 0 and logs[4]["R1"] > 0 and logs[1]["R1"] == 0 and logs[32]["Path Length"] > 0
                 and logs[1]["Path Length"] == 0, f"lucidrains {label}: the lazy phases")
@@ -2662,6 +2847,7 @@ def phase_tp_on_card(tmp: str) -> dict:
     from maua_tpu_torch.io import load_generator
     from maua_tpu_torch.ops import fused_act
 
+    fir = fir_module()
     gen = load_generator(os.path.join(tmp, f"g{GEN_SIZE}.pt"), device="cuda")
     z = torch.from_numpy(np.random.default_rng(22).standard_normal((8, STYLE_DIM), dtype=np.float32)).cuda()
     parallel.maybe_initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
@@ -2672,13 +2858,16 @@ def phase_tp_on_card(tmp: str) -> dict:
         with torch.inference_mode():
             want, _ = gen(z, randomize_noise=False)
             torch.cuda.synchronize()
-            fused_act.launches = fused_act.grad_launches = 0
+            fused_act.launches = fused_act.grad_launches = fir.launches = 0
             fwd_shapes, _ = record_launch_shapes(lambda: tp(z, randomize_noise=False))
             launches = (fused_act.launches, fused_act.grad_launches)
+            fir_launches = fir.launches
             got, _ = tp(z, randomize_noise=False)
             err = rel(got, want)
             per_batch = 2 * (int(math.log2(GEN_SIZE)) - 2) + 1
             require(launches == (N_MLP + per_batch, 0), f"TP: launches {launches}, derived ({N_MLP} + {per_batch}, 0)")
+            require(fir_launches == fir_per_pass(GEN_SIZE),
+                    f"TP: upfirdn2d launched {fir_launches} times, derived {fir_per_pass(GEN_SIZE)}")
             require(tuple(got.shape) == (8, 3, GEN_SIZE, GEN_SIZE) and bool(torch.isfinite(got).all()) and err <= 1e-4,
                     f"TP frames: {tuple(got.shape)}, {err} of the largest value off the unsharded generator's")
             require({s for (s, _, _) in fwd_shapes} <= held_shapes(), f"TP launch shapes {sorted(fwd_shapes)}")
@@ -2695,7 +2884,8 @@ def phase_tp_on_card(tmp: str) -> dict:
     require(not dist.is_initialized(), "TP: the process group was left open")
     ms = {k: statistics.mean(v) for k, v in times.items()}
     result = dict(mesh=[1, 1], world_size=1, backend="nccl", batch=8, sharded_tensors=sharded, frames_rel_err=err,
-                  drawn_noise_rel_err=err_r, launches=launches[0], expected_launches=N_MLP + per_batch, plain_ms=ms["plain"], tp_ms=ms["tp"],
+                  drawn_noise_rel_err=err_r, launches=launches[0], expected_launches=N_MLP + per_batch,
+                  upfirdn2d_launches=fir_launches, plain_ms=ms["plain"], tp_ms=ms["tp"],
                   tp_over_plain=ms["tp"] / ms["plain"], runs_ms=times)
     emit(phase="tp_on_card", size=GEN_SIZE, **result)
     del gen, tp
@@ -2748,21 +2938,23 @@ def require_flagship(cfg, bf16: bool, reg_chunks: int = 3, remat: bool = True) -
 
 
 def counted_train_run(argv: list, cfg, iters: int, label: str) -> dict:
-    """train_loop(argv) with both counters set to 0 just before and read just
-    after, and the peak memory reset: every step's launches against
-    expected_launches(cfg, step), finite losses, s/step by kind."""
+    """train_loop(argv) with the three counters set to 0 just before and read
+    just after, and the peak memory reset: every step's launches against
+    expected_launches(cfg, step) and expected_fir_launches(cfg, step), finite
+    losses, s/step by kind."""
     from maua_tpu_torch.ops import fused_act
     from maua_tpu_torch.train.cli import build_parser, train_loop
 
+    fir = fir_module()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fused_act.launches = fused_act.grad_launches = 0
+    fused_act.launches = fused_act.grad_launches = fir.launches = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         state = train_loop(build_parser().parse_args(argv))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = (fused_act.launches, fused_act.grad_launches)
+    launches, fir_launches = (fused_act.launches, fused_act.grad_launches), fir.launches
     run = argv[argv.index("--run_dir") + 1]
     lines = [json.loads(x) for x in open(os.path.join(run, "metrics.jsonl"))]
     require([x["step"] for x in lines] == list(range(iters)), f"{label}: logged steps {[x['step'] for x in lines]}")
@@ -2774,11 +2966,16 @@ def counted_train_run(argv: list, cfg, iters: int, label: str) -> dict:
         want = expected_launches(cfg, x["step"])
         got = (x["fused_bias_act launches"], x["fused_bias_act_grad launches"])
         require(got == want, f"{label} step {x['step']}: launches {got}, derived from the model {want}")
+        fir_want = expected_fir_launches(cfg, x["step"])
+        require(x["upfirdn2d launches"] == fir_want,
+                f"{label} step {x['step']}: upfirdn2d launches {x['upfirdn2d launches']}, derived from the model {fir_want}")
         kinds.setdefault(step_kind(cfg, x["step"]), []).append(x["sec_per_iter"])
     total = tuple(sum(expected_launches(cfg, i)[j] for i in range(iters)) for j in (0, 1))
     require(launches == total, f"{label}: {launches} launches in the run, derived {total}")
+    fir_total = sum(expected_fir_launches(cfg, i) for i in range(iters))
+    require(fir_launches == fir_total, f"{label}: {fir_launches} upfirdn2d launches in the run, derived {fir_total}")
     require(lines[0]["R1 Penalty"] > 0 and lines[0]["Path Length Regularization"] > 0, f"{label}: step 0 regularizers")
-    return dict(state=state, lines=lines, launches=launches, wall_s=wall,
+    return dict(state=state, lines=lines, launches=launches, fir_launches=fir_launches, wall_s=wall,
                 s_step={k: statistics.median(v) for k, v in kinds.items()},
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
@@ -2858,13 +3055,14 @@ def phase_train_1024_main_path(tmp: str) -> dict:
         shapes[label] = record_launch_shapes(lambda: step_fn(state, u8, draw_step(cfg, state.step, gen_draws, "cuda")))
         profile = (profile_train_step(step_fn, state, u8, cfg, gen_draws, "1024_bf16", 16 * 11, size=FLAG_SIZE)
                    if bf16 else None)
-        per_kind = {k: dict(zip(("forward", "gradient"), expected_launches(cfg, i))) for k, i in (("r1_path", 0), ("plain", 1))}
-        results[label] = dict(steps=steps, launches=r["launches"], s_step=r["s_step"], wall_s=r["wall_s"],
-                              peak_gb=r["peak_gb"], warm_up=warm, phase_ms=phase_ms, profile=profile)
+        per_kind = launches_per_kind(cfg, (("r1_path", 0), ("plain", 1)))
+        results[label] = dict(steps=steps, launches=r["launches"], fir_launches=r["fir_launches"], s_step=r["s_step"],
+                              wall_s=r["wall_s"], peak_gb=r["peak_gb"], warm_up=warm, phase_ms=phase_ms, profile=profile)
         emit(phase="train_1024_main_path", config=label, size=FLAG_SIZE, batch=TRAIN_BATCH,
              channel_multiplier=CHANNEL_MULTIPLIER, channel_max=512, reg_chunks=cfg.reg_chunks,
              remat_synth=cfg.remat_synth, ada_warp=cfg.ada_warp_method, ada_fast_warp=cfg.ada_fast_warp, steps=steps,
-             launches=dict(zip(("forward", "gradient"), r["launches"])), launches_per_step_kind=per_kind,
+             launches=dict(zip(("forward", "gradient"), r["launches"]), upfirdn2d=r["fir_launches"]),
+             launches_per_step_kind=per_kind,
              s_per_step=r["s_step"], imgs_per_s={k: TRAIN_BATCH / v for k, v in r["s_step"].items()},
              run_wall_s=r["wall_s"], peak_memory_gb=r["peak_gb"], warm_up_r1_path_step=warm,
              phase_device_ms=phase_ms, losses={k: [x[k] for x in r["lines"]] for k in ("Generator", "Discriminator")},
@@ -2961,6 +3159,7 @@ def main() -> int:
         return out
 
     per_batch = run("kernels", phase_kernels)
+    fir_sums = run("kernels_upfirdn2d", phase_kernels_upfirdn2d)
     run("functions_on_card", phase_functions_on_card)
     with tempfile.TemporaryDirectory() as tmp:
         run("card_vs_cpu", phase_card_vs_cpu, tmp)
@@ -3042,6 +3241,28 @@ def main() -> int:
                                                      for k in ("launches", "ms", "plain_ms", "bound_ms")})
                            for label in FLAG_STEPS},
         })
+    # upfirdn2d: its launches in phase 4's fp32 render run, times summed over
+    # one render batch's 16 sites (fp32); beside them a 256^2 step's sites and
+    # the launches of the ADA and flagship training runs
+    render_sites = fir_sums["render_1024_b8_float32"]
+    require(render_sites["n_sites"] == fir_per_pass(1024), f"render's upfirdn2d sites {render_sites['n_sites']}")
+    rows.append({
+        "name": "upfirdn2d",
+        "route": "cuda",
+        "source": "maua_tpu_torch/csrc/upfirdn2d.cu",
+        "replaces": None,
+        "launches": results["fp32_exact"]["fir_launches"],
+        **{k: render_sites[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")},
+        "bound_by": "bytes",
+        "library_ms": render_sites["library_ms"],
+        "ada_run_launches": ada["results"]["a_fp32_exact"]["fir_launches"],
+        "train_256_step_sites": {k: fir_sums["train_256_b12_float32"][k]
+                                 for k in ("n_sites", "ms", "plain_ms", "bound_ms", "library_ms")},
+        "train_1024": {label: dict(run_launches=flag["results"][label]["fir_launches"], steps=FLAG_STEPS[label])
+                       for label in FLAG_STEPS},
+    })
+    require(min(rows[-1]["ada_run_launches"], *(v["run_launches"] for v in rows[-1]["train_1024"].values())) > 0,
+            f"a training run launched upfirdn2d no time: {rows[-1]}")
     emit(phase="phase_seconds", seconds=seconds, total_s=time.perf_counter() - t0)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,10 +5,10 @@ rosinality state-dict keys, so a `g_ema` loads with `load_state_dict(strict=True
 The paths covered so far: rosinality `.pt` checkpoint -> StyleGAN2 `Generator`
 -> streaming `render()`; and StyleGAN2 training without augmentation (D, lazy
 R1, G, lazy path length, lookahead, EMA) from MREC record shards. The fused
-bias + leaky-ReLU and its gradient run as hand-written CUDA kernels
-(csrc/fused_bias_act.cu) on CUDA tensors.
+bias + leaky-ReLU and its gradient (csrc/fused_bias_act.cu) and upfirdn2d
+(csrc/upfirdn2d.cu) run as hand-written CUDA kernels on CUDA tensors.
 
-  ops/       fused bias + leaky-ReLU (kernels + plain forms, autograd Functions), upfirdn2d, kernel build
+  ops/       fused bias + leaky-ReLU and upfirdn2d (kernels + plain forms, autograd Functions), kernel build
   models/    StyleGAN2 Generator, Discriminator and their blocks
   io/        rosinality checkpoint loading, weights carried across from maua_tpu
   reactive/  Bend and Rewrite records

@@ -50,6 +50,21 @@ _SIGNATURES = {
             ctypes.c_int,
         ),
     },
+    "upfirdn2d": {
+        "upfirdn2d": (
+            [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, taps, out
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,  # n, c, stride of n, stride of c
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # h, w, out_h, out_w
+                ctypes.c_int, ctypes.c_int,  # up, down
+                ctypes.c_int, ctypes.c_int,  # pad_x0, pad_y0
+                ctypes.c_int, ctypes.c_int, ctypes.c_int,  # kh, kw, flip
+                ctypes.c_int,  # dtype
+                ctypes.c_void_p,  # cudaStream_t
+            ],
+            ctypes.c_int,
+        ),
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -47,14 +47,16 @@ Each logged step appends one JSON line to `<run_dir>/metrics.jsonl` with the
 JAX package's metric names, the D phase's `sign_sum` and `n_pred` (ADA's
 real-prediction counts), `step`, `sec_per_iter` (wall time per step since
 the last log, the step's work synchronised by reading the metrics) and the
-launches of the two fused bias + leaky-ReLU kernels in the logged steps'
-train steps (`fused_bias_act launches`, `fused_bias_act_grad launches`;
-0 on the CPU, where the plain forms run).
+launches of the two fused bias + leaky-ReLU kernels and of the upfirdn2d
+kernel in the logged steps' train steps (`fused_bias_act launches`,
+`fused_bias_act_grad launches`, `upfirdn2d launches`; 0 on the CPU, where
+the plain forms run).
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
 import time
@@ -261,7 +263,8 @@ def _train(args, multiprocess: bool) -> Optional[TrainState]:
     if args.log_spec_norm:
         spec_state = {"G": init_spectral_state(state.g), "D": init_spectral_state(state.d)}
 
-    counts = {"fused_bias_act launches": 0, "fused_bias_act_grad launches": 0}
+    fir = importlib.import_module("..ops.upfirdn2d", __package__)  # the package exports a function of that name
+    counts = {"fused_bias_act launches": 0, "fused_bias_act_grad launches": 0, "upfirdn2d launches": 0}
     metrics_file = open(os.path.join(args.run_dir, "metrics.jsonl"), "a") if main_process else None
     try:
         t_last = time.time()
@@ -269,10 +272,11 @@ def _train(args, multiprocess: bool) -> Optional[TrainState]:
         for i in range(start, args.iter):
             real = next(loader)
             draws = draw_step(cfg, state.step, draw_gen, device)
-            before = (fused_act.launches, fused_act.grad_launches)
+            before = (fused_act.launches, fused_act.grad_launches, fir.launches)
             metrics = step_fn(state, real, draws)
             counts["fused_bias_act launches"] += fused_act.launches - before[0]
             counts["fused_bias_act_grad launches"] += fused_act.grad_launches - before[1]
+            counts["upfirdn2d launches"] += fir.launches - before[2]
             if trace_ctx is not None and i - start >= args.profile_iters:
                 trace_ctx.__exit__(None, None, None)
                 trace_ctx = None
@@ -301,7 +305,7 @@ def _train(args, multiprocess: bool) -> Optional[TrainState]:
                 save_image_grid(imgs.cpu().numpy(), os.path.join(args.run_dir, f"samples/{i:07d}.png"))
 
             if args.eval_every > 0 and i > 0 and i % args.eval_every == 0 and (swd_reals is not None or real_stats is not None):
-                t_eval, launched = time.time(), fused_act.launches
+                t_eval, launched, fir_launched = time.time(), fused_act.launches, fir.launches
                 with torch.no_grad():
                     if swd_reals is not None:
                         scores = _eval_swd(state.g_ema, swd_reals, args.fid_batch, args.seed, i, device)
@@ -312,7 +316,8 @@ def _train(args, multiprocess: bool) -> Optional[TrainState]:
                         scores.update(pretrained=eval_pretrained, weights_fingerprint=eval_fingerprint)
                         key, value = "FID", scores["fid"]
                 scores.update({key: value, "step": i, "eval_seconds": time.time() - t_eval,
-                               "fused_bias_act launches": fused_act.launches - launched})
+                               "fused_bias_act launches": fused_act.launches - launched,
+                               "upfirdn2d launches": fir.launches - fir_launched})
                 print(json.dumps({key: value, "step": i}), flush=True)
                 metrics_file.write(json.dumps(scores) + "\n")
                 metrics_file.flush()
