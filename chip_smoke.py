@@ -15,7 +15,8 @@ Phases, each printing JSON lines:
      the card against plain autograd; the upfirdn2d kernel against its plain
      form at render's sites (batch 8, 1024^2) and a 256^2 training step's
      (forward and backward geometries of G at batch 12 and of D's fused
-     pass at 24), beside its memory bound and F.conv2d's depthwise conv
+     pass at 24), and in fp32 at a 1024^2 StyleGAN1 synthesis' eight
+     [1, 2, 1] blurs (batch 8), beside its memory bound and F.conv2d's depthwise conv
      (`library_ms`, a yardstick the port does not call);
   3. generator, card against CPU: a full-width 256^2 checkpoint made from a
      numpy seed, same W+ latents and noise, exact fp32, max abs <= 1e-3;
@@ -91,7 +92,8 @@ Phases, each printing JSON lines:
      upfirdn2d launches per step); (c) a 10 s
      interpolation_video() with segmented noise; (d) generate_and_select()
      of 24 images; (e) generate(stylegan1=True) over 4 s with the FFHQ
-     StyleGAN1, and load_tf_generator() of a full-width Gs pickle; (f) the
+     StyleGAN1 (8 upfirdn2d launches a synthesis), and load_tf_generator()
+     of a full-width Gs pickle; (f) the
      eval CLI's inception (512 images at 256^2) and fid (1024 samples) in
      exact and fast, ppl (256 pairs, LPIPS-VGG) in exact, and ppl refusing
      fast; (g) the default train CLI
@@ -152,7 +154,8 @@ summed over one fp32 VAE step, beside them `train_1024`, the launches of
 phase 23's runs and the times summed over one of its R1 + path steps in
 each precision, and `ada_run_launches`; then upfirdn2d, with its launches
 in phase 4's fp32 render run and times summed over one render batch's 16
-sites, a 256^2 step's sites, and its launches in the ADA and flagship runs
+sites, a 256^2 step's sites, a StyleGAN1 batch's 8 blur sites, and its
+launches in the ADA and flagship runs
 (`kernels_train` keeps the fp32 ADA run's numbers of earlier slices). The
 last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 before it; without a CUDA card, or without the package beside this file,
@@ -366,7 +369,20 @@ def fir_sites_train(batch: int = 12, size: int = 256) -> list:
     return sites
 
 
-def fir_case(shape, gain, up, down, pad, dtype, seed=0) -> dict:
+def fir_sites_sg1(batch: int = 8, size: int = 1024) -> list:
+    """The sites of one StyleGAN1 synthesis forward (taps [1, 2, 1]): the blur
+    after each block's up-conv, an r x r plane of nf channels to r x r with
+    pad 1, r = 8 .. size (512 channels to 32^2, then 256 .. 16)."""
+    from maua_tpu_torch.models.stylegan1 import nf
+
+    sites, res = [], 8
+    while res <= size:
+        sites.append((f"sg1_blur_{res}", (batch, nf(int(math.log2(res)) - 1), res, res), 1.0, 1, 1, (1, 1, 1, 1)))
+        res *= 2
+    return sites
+
+
+def fir_case(shape, gain, up, down, pad, dtype, taps=(1, 3, 3, 1), seed=0) -> dict:
     """The upfirdn2d kernel against its plain form on one input: the largest
     error (fp32: rtol = atol = 1e-5; bf16: two ulps), kernel_ms, plain_ms
     (the padded copy and the depthwise conv), library_ms (F.conv2d's
@@ -379,7 +395,7 @@ def fir_case(shape, gain, up, down, pad, dtype, seed=0) -> dict:
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(shape, generator=g, device="cuda").to(dtype)
-    k = setup_filter([1, 3, 3, 1], gain=gain).cuda()
+    k = setup_filter(list(taps), gain=gain).cuda()
     ups, downs = (up, up), (down, down)
     with tf32_off():
         got = upfirdn2d_kernel(x, k, ups, downs, pad)
@@ -393,7 +409,7 @@ def fir_case(shape, gain, up, down, pad, dtype, seed=0) -> dict:
         if up > 1:
             xs = F.pad(x.reshape(n, c, h, 1, w, 1), [0, up - 1, 0, 0, 0, up - 1]).reshape(n, c, h * up, w * up)
         xs = F.pad(xs, [pad[0], pad[1], pad[2], pad[3]])
-        kd = torch.flip(k, (0, 1)).to(dtype)[None, None].expand(c, 1, 4, 4).contiguous()
+        kd = torch.flip(k, (0, 1)).to(dtype)[None, None].expand(c, 1, *k.shape).contiguous()
         moved = (x.numel() + got.numel()) * x.element_size()
         out = dict(
             out_shape=list(got.shape),
@@ -408,18 +424,23 @@ def fir_case(shape, gain, up, down, pad, dtype, seed=0) -> dict:
 
 
 def phase_kernels_upfirdn2d() -> dict:
-    """The upfirdn2d kernel at render's sites (batch 8, 1024^2) and at a 256^2
-    training step's (batch 12, D's fused pass 24), fp32 and bf16: one row a
-    site and the sums."""
+    """The upfirdn2d kernel at render's sites (batch 8, 1024^2), at a 256^2
+    training step's (batch 12, D's fused pass 24), fp32 and bf16, and at a
+    1024^2 StyleGAN1 synthesis' 3-tap blurs (batch 8, fp32, the precision
+    it renders in): one row a site and the sums."""
     totals = {}
-    for label, sites in (("render_1024_b8", fir_sites_render()), ("train_256_b12", fir_sites_train())):
-        for dtype in (torch.float32, torch.bfloat16):
+    fir4, fir3 = (1, 3, 3, 1), (1, 2, 1)
+    fp32, both = (torch.float32,), (torch.float32, torch.bfloat16)
+    for label, sites, taps, dtypes in (("render_1024_b8", fir_sites_render(), fir4, both),
+                                       ("train_256_b12", fir_sites_train(), fir4, both),
+                                       ("sg1_1024_b8", fir_sites_sg1(), fir3, fp32)):
+        for dtype in dtypes:
             name = str(dtype).split(".")[1]
             tot = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, n_sites=0)
             for site, shape, gain, up, down, pad in sites:
-                case = fir_case(shape, gain, up, down, pad, dtype)
+                case = fir_case(shape, gain, up, down, pad, dtype, taps)
                 emit(phase="kernel", kernel="upfirdn2d", sites=label, site=site, shape=list(shape), up=up, down=down,
-                     pad=list(pad), dtype=name, bound_by="bytes", **case)
+                     pad=list(pad), taps=list(taps), dtype=name, bound_by="bytes", **case)
                 tot["max_abs_err"] = max(tot["max_abs_err"], case["max_abs_err"])
                 for k, v in (("ms", "kernel_ms"), ("plain_ms", "plain_ms"), ("library_ms", "library_ms"),
                              ("bound_ms", "bound_ms")):
@@ -717,6 +738,12 @@ def fir_per_pass(size: int) -> int:
     and as many in one D forward (each ResBlock's blur before its strided
     conv and its skip's)."""
     return 2 * (int(math.log2(size)) - 2)
+
+
+def sg1_fir_per_pass(size: int) -> int:
+    """upfirdn2d calls of one StyleGAN1 synthesis at size^2: the [1, 2, 1]
+    blur after each block's up-conv, 8^2 .. size^2 (8 at 1024^2)."""
+    return int(math.log2(size)) - 2
 
 
 def expected_fir_launches(cfg, step: int) -> int:
@@ -1966,7 +1993,12 @@ def phase_tools_card_vs_cpu(tmp: str) -> None:
         fabricate_sg1_checkpoint(sg1_path, 256, seed=34)
         z = torch.from_numpy(rng.standard_normal((2, STYLE_DIM)).astype(np.float32))
         card, cpu = load_stylegan1(sg1_path, device="cuda"), load_stylegan1(sg1_path, device="cpu")
+        fir_ops = fir_module()
+        torch.cuda.synchronize()
+        fir_before = fir_ops.launches
         a, b = card(z.cuda(), input_is_latent=False)[0], cpu(z, input_is_latent=False)[0]
+        require(fir_ops.launches - fir_before == sg1_fir_per_pass(256),
+                f"StyleGAN1 256^2: {fir_ops.launches - fir_before} upfirdn2d launches, derived {sg1_fir_per_pass(256)}")
         out["stylegan1_256_max_abs"] = (a.cpu() - b).abs().max().item()
         require(bool(torch.isfinite(a).all()) and out["stylegan1_256_max_abs"] <= 1e-3,
                 f"StyleGAN1 256^2: card vs CPU max abs {out['stylegan1_256_max_abs']}")
@@ -2136,7 +2168,8 @@ def phase_tools_main_path(tmp: str, ada_shards: str) -> dict:
     _, s, _, _ = counted(lambda: generate(sg1, os.path.join(tmp, "track.wav"), stylegan1=True, G_res=TOOLS_SIZE,
                                           out_size=TOOLS_SIZE, offset=60.0, duration=4.0, fps=30, batch=8,
                                           output_file=os.path.join(tmp, "sg1.mp4"), device="cuda"),
-                         "(e) generate(stylegan1=True)", 0)  # StyleGAN1's leaky-ReLU is plain
+                         "(e) generate(stylegan1=True)", 0,  # StyleGAN1's leaky-ReLU is plain
+                         fir=sg1_fir_per_pass(TOOLS_SIZE) * (n_frames // 8))
     require(len(CountingWriter.written) == n_frames and min(CountingWriter.written) > 0, f"(e) {len(CountingWriter.written)} frames")
     results["e_stylegan1"] = dict(frames=n_frames, seconds=s, frames_per_s=n_frames / s)
     pkl = os.path.join(tmp, "gs1024.pkl")
@@ -3246,6 +3279,8 @@ def main() -> int:
     # the launches of the ADA and flagship training runs
     render_sites = fir_sums["render_1024_b8_float32"]
     require(render_sites["n_sites"] == fir_per_pass(1024), f"render's upfirdn2d sites {render_sites['n_sites']}")
+    require(fir_sums["sg1_1024_b8_float32"]["n_sites"] == sg1_fir_per_pass(1024),
+            f"StyleGAN1's upfirdn2d sites {fir_sums['sg1_1024_b8_float32']['n_sites']}")
     rows.append({
         "name": "upfirdn2d",
         "route": "cuda",
@@ -3258,6 +3293,8 @@ def main() -> int:
         "ada_run_launches": ada["results"]["a_fp32_exact"]["fir_launches"],
         "train_256_step_sites": {k: fir_sums["train_256_b12_float32"][k]
                                  for k in ("n_sites", "ms", "plain_ms", "bound_ms", "library_ms")},
+        "sg1_1024_b8_sites": {k: fir_sums["sg1_1024_b8_float32"][k]
+                              for k in ("n_sites", "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")},
         "train_1024": {label: dict(run_launches=flag["results"][label]["fir_launches"], steps=FLAG_STEPS[label])
                        for label in FLAG_STEPS},
     })

@@ -4,12 +4,13 @@ maua_tpu/models/stylegan1.py).
 G_mapping: pixel norm + 8 equalized linears (lr multiplier 0.01) with
 leaky-ReLU. G_synthesis: a learned 4x4 constant, then one block per
 resolution of [2x up-conv (a transposed conv of the 4-tap summed weight from
-64^2 up, nearest upscale + 3x3 conv below) -> [1, 2, 1] blur -> epilogue ->
-3x3 conv -> epilogue], each epilogue noise -> leaky-ReLU -> instance norm ->
-style modulation `x * (s0 + 1) + s1`; a final 1x1 to RGB. Truncation lerps
-the first 8 of the 18 latents toward the mean latent. Each block's single
-noise map feeds both of its epilogues. The leaky-ReLU is a plain one (the
-gain lives in the equalized weights), so no fused kernel runs here.
+64^2 up, nearest upscale + 3x3 conv below) -> [1, 2, 1] blur -> bias ->
+epilogue -> 3x3 conv -> epilogue], each epilogue noise -> leaky-ReLU ->
+instance norm -> style modulation `x * (s0 + 1) + s1`; a final 1x1 to RGB.
+Truncation lerps the first 8 of the 18 latents toward the mean latent. Each
+block's single noise map feeds both of its epilogues. The leaky-ReLU is a
+plain one (the gain lives in the equalized weights), so no fused bias-act
+kernel runs here.
 
 The module tree carries the lernapparat G_style keys
 (`g_mapping.dense3.weight`, `g_synthesis.blocks.64x64.conv0_up.weight`,
@@ -18,9 +19,17 @@ dict loads as it is (`StyleGAN1.from_state_dict`); the noise buffers are
 `noises.noise_{i}`. Like the StyleGAN2 Generator, the forward takes render()'s
 keyword arguments and returns (image, None). It runs in fp32 with TF32 off.
 
-As in the JAX package (and unlike lernapparat, which adds the up-conv's bias
-after the blur on both paths), the transposed-conv path adds no bias and the
-upscale path adds it before the blur.
+The up-conv's bias is added after the blur on both paths, as NVlabs'
+G_synthesis (`layer_epilogue(blur(upscale2d_conv2d(x)))`, whose epilogue adds
+the bias) and lernapparat's `MyConv2d` do. The JAX package departs from both:
+its transposed-conv path adds no bias and its upscale path adds it before the
+zero-padded blur, where the border pixels take 3/4 of it and the corners 9/16.
+The blur is upfirdn2d (the hand-written kernel on a CUDA tensor), with its
+taps held on the module's device.
+
+Spans (`telemetry.phase`, device-timed, on only while a profiler records):
+`sg1.synthesis` around the blocks and torgb, one a forward; `sg1.up` around
+each block's up-conv, blur and bias; `sg1.epilogue` around each epilogue.
 """
 
 from __future__ import annotations
@@ -34,6 +43,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
+from ..ops.upfirdn2d import setup_filter, upfirdn2d
+from ..telemetry.profiling import phase
 from .blocks import apply_bends, tf32
 
 __all__ = ["StyleGAN1", "load_stylegan1", "nf"]
@@ -78,15 +89,25 @@ class _Conv(nn.Module):
         k = self.weight.shape[-1]
         return F.conv2d(x, self.weight * self.w_mul, self.bias, padding=k // 2)
 
-    def up(self, x: torch.Tensor) -> torch.Tensor:
-        """2x upscale + conv: from 64^2 up a stride-2 transposed conv of the
-        4-tap summed weight (no bias); below, nearest upscale, conv, bias."""
+
+class _UpConv(_Conv):
+    """G_synthesis' Conv0_up: 2x upscale + 3x3 conv, the [1, 2, 1] blur, then
+    the bias. From a 128^2 output a stride-2 transposed conv of the 4-tap
+    summed weight; below, nearest upscale and the conv."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__(cin, cout, 3)
+        self.register_buffer("blur", setup_filter([1, 2, 1]), persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight * self.w_mul
         if min(x.shape[2:]) * 2 >= 128:
-            w = (self.weight * self.w_mul).transpose(0, 1)  # [I, O, 3, 3]
-            w = F.pad(w, (1, 1, 1, 1))
+            w = F.pad(w.transpose(0, 1), (1, 1, 1, 1))  # [I, O, 5, 5]
             w = w[:, :, 1:, 1:] + w[:, :, :-1, 1:] + w[:, :, 1:, :-1] + w[:, :, :-1, :-1]  # [I, O, 4, 4]
-            return F.conv_transpose2d(x, w, stride=2, padding=1)
-        return self(F.interpolate(x, scale_factor=2, mode="nearest"))
+            x = F.conv_transpose2d(x, w, stride=2, padding=1)
+        else:
+            x = F.conv2d(F.interpolate(x, scale_factor=2, mode="nearest"), w, padding=1)
+        return upfirdn2d(x, self.blur, pad=(1, 1)) + self.bias.reshape(1, -1, 1, 1)
 
 
 class _NoiseWeight(nn.Module):
@@ -117,19 +138,13 @@ class _Epilogue(nn.Module):
         self.style_mod = _StyleMod(channels)
 
     def forward(self, x: torch.Tensor, w: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
-        x = _lrelu(x + self.top_epi.noise.weight.reshape(1, -1, 1, 1) * noise)
-        mean = x.mean(dim=(2, 3), keepdim=True)
-        var = x.var(dim=(2, 3), keepdim=True, correction=0)
-        x = (x - mean) * torch.rsqrt(var + 1e-5)
-        s = self.style_mod.lin(w).reshape(w.shape[0], 2, -1, 1, 1)
-        return x * (s[:, 0] + 1.0) + s[:, 1]
-
-
-def _blur121(x: torch.Tensor) -> torch.Tensor:
-    """Depthwise 3x3 [1, 2, 1] x [1, 2, 1] / 16 blur, zero padding 1."""
-    k = torch.tensor([1.0, 2.0, 1.0], dtype=x.dtype, device=x.device)
-    k = torch.outer(k, k) / 16.0
-    return F.conv2d(x, k.expand(x.shape[1], 1, 3, 3), padding=1, groups=x.shape[1])
+        with phase("sg1.epilogue", device=x.device):
+            x = _lrelu(x + self.top_epi.noise.weight.reshape(1, -1, 1, 1) * noise)
+            mean = x.mean(dim=(2, 3), keepdim=True)
+            var = x.var(dim=(2, 3), keepdim=True, correction=0)
+            x = (x - mean) * torch.rsqrt(var + 1e-5)
+            s = self.style_mod.lin(w).reshape(w.shape[0], 2, -1, 1, 1)
+            return x * (s[:, 0] + 1.0) + s[:, 1]
 
 
 class _Block(nn.Module):
@@ -141,7 +156,7 @@ class _Block(nn.Module):
             self.bias = nn.Parameter(torch.zeros(cout))
             self.conv = _Conv(cout, cout, 3)
         else:
-            self.conv0_up = _Conv(cin, cout, 3)
+            self.conv0_up = _UpConv(cin, cout)
             self.conv1 = _Conv(cout, cout, 3)
         self.epi1 = _Epilogue(cout)
         self.epi2 = _Epilogue(cout)
@@ -151,7 +166,9 @@ class _Block(nn.Module):
             x = self.const.expand(w1.shape[0], -1, -1, -1) + self.bias.reshape(1, -1, 1, 1)
             x = self.epi1(x, w1, noise)
             return self.epi2(self.conv(x), w2, noise)
-        x = self.epi1(_blur121(self.conv0_up.up(x)), w1, noise)
+        with phase("sg1.up", device=x.device):
+            x = self.conv0_up(x)
+        x = self.epi1(x, w1, noise)
         return self.epi2(self.conv1(x), w2, noise)
 
 
@@ -289,18 +306,19 @@ class StyleGAN1(nn.Module):
 
             nz = list(noise) if noise is not None else [None] * self.num_layers
             x = None
-            for i, block in enumerate(self.g_synthesis.blocks.values()):
-                n = nz[i] if i < len(nz) else None
-                h, w = self.const_hw[0] * 2**i, self.const_hw[1] * 2**i
-                if n is None and randomize_noise:
-                    n = torch.randn((latent.shape[0], 1, h, w), generator=rng, device=latent.device)
-                elif n is None and not randomize_noise and i < len(nz):
-                    n = getattr(self.noises, f"noise_{i}")
-                elif n is None:
-                    n = torch.zeros((1, 1, h, w), device=latent.device)
-                x = block(x, latent[:, 2 * i], latent[:, 2 * i + 1], n.to(latent))
-                x = apply_bends(x, i, bends)
-            return self.g_synthesis.torgb(x), None
+            with phase("sg1.synthesis", device=latent.device):
+                for i, block in enumerate(self.g_synthesis.blocks.values()):
+                    n = nz[i] if i < len(nz) else None
+                    h, w = self.const_hw[0] * 2**i, self.const_hw[1] * 2**i
+                    if n is None and randomize_noise:
+                        n = torch.randn((latent.shape[0], 1, h, w), generator=rng, device=latent.device)
+                    elif n is None and not randomize_noise and i < len(nz):
+                        n = getattr(self.noises, f"noise_{i}")
+                    elif n is None:
+                        n = torch.zeros((1, 1, h, w), device=latent.device)
+                    x = block(x, latent[:, 2 * i], latent[:, 2 * i + 1], n.to(latent))
+                    x = apply_bends(x, i, bends)
+                return self.g_synthesis.torgb(x), None
 
 
 def load_stylegan1(checkpoint: str, output_size: Optional[int] = None, device: DeviceLike = None) -> StyleGAN1:

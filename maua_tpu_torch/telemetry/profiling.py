@@ -52,6 +52,9 @@ The program's spans (request id in brackets):
   call serial]; `render.batch` (synthesis plus the pinned copy's enqueue) and
   `render.fetch` (the copy's event wait, the copy out of the pinned slot and
   the queue put) [(call serial, batch)].
+* models/stylegan1.py, all device-timed: `sg1.synthesis` (the blocks and
+  torgb, one a forward), `sg1.up` (each block's up-conv, blur and bias),
+  `sg1.epilogue` (each noise, leaky-ReLU, instance norm and style).
 No span name starts with `portbench.`: a benchmark keeps that prefix for its
 own spans.
 """

@@ -174,9 +174,11 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
 # 2r + 1 planes, its backward (pad 2, 2), D's blurs (2, 2) and skips (1, 1),
 # the skips' Upsample (up 2, pad 2, 1) and its backward (down 2, pad 1, 1) at
 # odd and non-square sizes, G's and D's small planes; ADA's SYM6 pair; a
-# negative pad with a 3 x 4 filter.
+# negative pad with a 3 x 4 filter; StyleGAN1's [1, 2, 1] blur at 1024^2 and 8^2.
 BLUR4 = [1, 3, 3, 1]
 FIR_CASES = {
+    "sg1_blur_1024": ((8, 16, 1024, 1024), ([1, 2, 1], 1.0), 1, 1, (1, 1, 1, 1)),
+    "sg1_blur_8": ((8, 512, 8, 8), ([1, 2, 1], 1.0), 1, 1, (1, 1, 1, 1)),
     "blur_up_1025": ((2, 4, 1025, 1025), (BLUR4, 4.0), 1, 1, (1, 1, 1, 1)),
     "blur_up_17": ((8, 32, 17, 17), (BLUR4, 4.0), 1, 1, (1, 1, 1, 1)),
     "blur_up_9": ((12, 512, 9, 9), (BLUR4, 4.0), 1, 1, (1, 1, 1, 1)),
@@ -317,6 +319,34 @@ def test_upfirdn2d_is_one_launch_and_no_sync(cuda):
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     assert len(names) == 2 and all("upfirdn2d" in n for n in names), names
+
+
+@pytest.mark.cuda
+def test_stylegan1_forward_is_eight_fir_launches_and_no_sync(cuda):
+    """A 1024^2 StyleGAN1 synthesis at full width: one upfirdn2d launch per
+    up-conv's blur (8), and no synchronizing call in its `sg1.synthesis` span."""
+    from maua_tpu_torch import telemetry
+    from maua_tpu_torch.models.stylegan1 import StyleGAN1, nf
+
+    torch.manual_seed(0)
+    model = StyleGAN1(1024, [nf(r - 1) for r in range(2, 11)]).to(cuda).eval()
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_()
+        w = torch.randn(2, model.n_latent, model.style_dim, device=cuda)
+        model(w)
+        torch.cuda.synchronize()
+        before = fir.launches
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            telemetry.reset()
+            img, _ = model(w)
+            torch.cuda.synchronize()
+        spans = telemetry.recorded()
+    assert fir.launches - before == 8
+    assert img.shape == (2, 3, 1024, 1024) and bool(torch.isfinite(img).all())
+    assert spans["sg1.synthesis"]["count"] == 1 and spans["sg1.up"]["count"] == 8
+    assert spans["sg1.epilogue"]["count"] == 18
+    assert spans["sg1.synthesis"]["counters"].get("cuda.syncs", 0) == 0
 
 
 @pytest.mark.cuda

@@ -57,7 +57,10 @@ def close(got, want, atol):
 
 def sg1_sd(size: int, seed: int = 0) -> dict:
     """fabricate_sg1_sd with non-zero biases and noise weights, so every
-    parameter reaches the image."""
+    parameter reaches the image, except the up-convs' biases: the JAX package
+    adds none on its fused path and adds it before the zero-padded blur on the
+    other (maua_tpu/models/stylegan1.py), where the port, as NVlabs' G_style,
+    adds it after the blur (tests/test_torch_port_stylegan1_reference.py)."""
     sd = fabricate_sg1_sd(size=size, seed=seed)
     rng = np.random.RandomState(seed + 100)
     for k, v in sd.items():
@@ -65,6 +68,8 @@ def sg1_sd(size: int, seed: int = 0) -> dict:
             sd[k] = (0.5 * rng.randn(*v.shape)).astype(np.float32)
         elif k.endswith("bias"):
             sd[k] = (0.1 * rng.randn(*v.shape)).astype(np.float32)
+        if k.endswith("conv0_up.bias"):
+            sd[k] = np.zeros_like(sd[k])
     return sd
 
 

@@ -6,11 +6,13 @@ refuses; the flip flag of the plain form. The kernel against the plain form
 on the card is in test_torch_port_kernels.py. No JAX."""
 
 import importlib
+import os
+import sys
 
 import pytest
 import torch
 
-from maua_tpu_torch.models import Discriminator, Generator
+from maua_tpu_torch.models import Discriminator, Generator, StyleGAN1
 from maua_tpu_torch.ops import _build
 from maua_tpu_torch.ops.upfirdn2d import (
     backward_geometry,
@@ -23,6 +25,7 @@ from maua_tpu_torch.ops.upfirdn2d import (
 from maua_tpu_torch.train.augment import apply_affine
 from maua_tpu_torch.train.losses import d_r1_penalty
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 fir = importlib.import_module("maua_tpu_torch.ops.upfirdn2d")  # the package exports a function of that name
 
 
@@ -71,13 +74,27 @@ def _ada_conv_warp():
     apply_affine(img, G, method="conv").square().sum().backward()
 
 
-CALLERS = {"generator": _generator_path_penalty, "discriminator": _discriminator_r1, "ada": _ada_conv_warp}
+def _stylegan1_forward():
+    """StyleGAN1's synthesis at 128^2: the [1, 2, 1] blur after each up-conv,
+    nearest (8^2-64^2) and fused (128^2)."""
+    torch.manual_seed(0)
+    model = StyleGAN1(128, [16] * 6)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_()
+        model(torch.randn(2, model.n_latent, model.style_dim))
+
+
+CALLERS = {"generator": _generator_path_penalty, "discriminator": _discriminator_r1, "ada": _ada_conv_warp,
+           "stylegan1": _stylegan1_forward}
 # (up, down, taps) of each caller's calls: G's blurs, its skips' Upsample and
-# that one's backward; D's blurs alone; ADA's SYM6 up 2 and down 2
+# that one's backward; D's blurs alone; ADA's SYM6 up 2 and down 2; StyleGAN1's
+# 3-tap blurs
 SITES = {
     "generator": {(1, 1, (4, 4)), (2, 1, (4, 4)), (1, 2, (4, 4))},
     "discriminator": {(1, 1, (4, 4))},
     "ada": {(2, 1, (12, 12)), (1, 2, (12, 12))},
+    "stylegan1": {(1, 1, (3, 3))},
 }
 
 
@@ -95,6 +112,24 @@ def test_kernel_takes_every_geometry_the_package_builds(recorded, caller):
         assert (bh, bw) == shape[2:]
         assert backward_geometry((oh, ow), k_shape, b_up, b_down, b_pad, shape[2:]) == (up, down, pad)
     assert {(up[0], down[0], k_shape) for _, k_shape, up, down, _ in recorded} == SITES[caller]
+
+
+def test_chip_smokes_stylegan1_sites_are_the_forwards(recorded):
+    """chip_smoke times the kernel at StyleGAN1's blur sites: they are the
+    calls a full-width forward makes (here at 128^2, batch 2)."""
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(REPO)
+    from maua_tpu_torch.models.stylegan1 import nf
+
+    torch.manual_seed(0)
+    model = StyleGAN1(128, [nf(r - 1) for r in range(2, 8)])
+    with torch.no_grad():
+        model(torch.randn(2, model.n_latent, model.style_dim))
+    assert [(shape, (3, 3), (up, up), (down, down), pad)
+            for _, shape, _, up, down, pad in chip_smoke.fir_sites_sg1(batch=2, size=128)] == recorded
 
 
 def test_cpu_tensors_never_launch(recorded):
