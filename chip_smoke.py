@@ -142,7 +142,9 @@ Phases, each printing JSON lines:
      1x-grid warps, lookahead; the automatic rule resolves reg_chunks 3 and
      remat_synth on), 4 steps in bf16 and 2 in fp32 exact, every step's
      launches of the three kernels checked against the structure (remat's
-     recomputed synthesis included); s/step by kind, images/s, peak memory,
+     recomputed synthesis included), and the run's conv double backwards
+     (`ops.conv.second_order`: D's convs per R1 chunk, G's modulated convs
+     per path chunk); s/step by kind, images/s, peak memory,
      device ms per phase of the R1 + path step; one bf16 R1 + path step
      with --reg_chunks 1 --remat_synth 0 for its peak memory; then both
      kernels against their plain versions at every launch shape of an
@@ -724,6 +726,21 @@ def expected_launches(cfg, step: int) -> tuple[int, int]:
     if cfg.path_regularize > 0 and step % cfg.g_reg_every == 0:
         fwd, grad = fwd + a * k * synth, grad + a * k * (3 * n_layers + 2 * n_mlp)
     return fwd, grad
+
+
+def expected_second_order(cfg, step: int) -> int:
+    """`ops.conv.second_order` of train step `step`: each conv's double
+    backward runs once a regularized chunk, D's Dc = from_rgb + 3 per ResBlock
+    + final_conv convs for R1, G's n_layers StyledConvs and log2(size) - 1
+    ToRGBs for the path penalty; num_accumulate x reg_chunks chunks each."""
+    log_size = int(math.log2(cfg.size))
+    a, k = cfg.num_accumulate, max(1, cfg.reg_chunks)
+    n = 0
+    if cfg.r1 > 0 and step % cfg.d_reg_every == 0:
+        n += a * k * (1 + 3 * (log_size - 2) + 1)
+    if cfg.path_regularize > 0 and step % cfg.g_reg_every == 0:
+        n += a * k * ((2 * (log_size - 2) + 1) + (log_size - 1))
+    return n
 
 
 def fir_module():
@@ -2971,17 +2988,18 @@ def require_flagship(cfg, bf16: bool, reg_chunks: int = 3, remat: bool = True) -
 
 
 def counted_train_run(argv: list, cfg, iters: int, label: str) -> dict:
-    """train_loop(argv) with the three counters set to 0 just before and read
+    """train_loop(argv) with the four counters set to 0 just before and read
     just after, and the peak memory reset: every step's launches against
-    expected_launches(cfg, step) and expected_fir_launches(cfg, step), finite
+    expected_launches(cfg, step) and expected_fir_launches(cfg, step), the
+    run's conv double backwards against expected_second_order, finite
     losses, s/step by kind."""
-    from maua_tpu_torch.ops import fused_act
+    from maua_tpu_torch.ops import conv, fused_act
     from maua_tpu_torch.train.cli import build_parser, train_loop
 
     fir = fir_module()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fused_act.launches = fused_act.grad_launches = fir.launches = 0
+    fused_act.launches = fused_act.grad_launches = fir.launches = conv.second_order = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         state = train_loop(build_parser().parse_args(argv))
@@ -3007,9 +3025,12 @@ def counted_train_run(argv: list, cfg, iters: int, label: str) -> dict:
     require(launches == total, f"{label}: {launches} launches in the run, derived {total}")
     fir_total = sum(expected_fir_launches(cfg, i) for i in range(iters))
     require(fir_launches == fir_total, f"{label}: {fir_launches} upfirdn2d launches in the run, derived {fir_total}")
+    second_order = sum(expected_second_order(cfg, i) for i in range(iters))
+    require(conv.second_order == second_order,
+            f"{label}: {conv.second_order} conv double backwards in the run, derived {second_order}")
     require(lines[0]["R1 Penalty"] > 0 and lines[0]["Path Length Regularization"] > 0, f"{label}: step 0 regularizers")
-    return dict(state=state, lines=lines, launches=launches, fir_launches=fir_launches, wall_s=wall,
-                s_step={k: statistics.median(v) for k, v in kinds.items()},
+    return dict(state=state, lines=lines, launches=launches, fir_launches=fir_launches, second_order=second_order,
+                wall_s=wall, s_step={k: statistics.median(v) for k, v in kinds.items()},
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
@@ -3095,7 +3116,7 @@ def phase_train_1024_main_path(tmp: str) -> dict:
              channel_multiplier=CHANNEL_MULTIPLIER, channel_max=512, reg_chunks=cfg.reg_chunks,
              remat_synth=cfg.remat_synth, ada_warp=cfg.ada_warp_method, ada_fast_warp=cfg.ada_fast_warp, steps=steps,
              launches=dict(zip(("forward", "gradient"), r["launches"]), upfirdn2d=r["fir_launches"]),
-             launches_per_step_kind=per_kind,
+             launches_per_step_kind=per_kind, conv_second_order=r["second_order"],
              s_per_step=r["s_step"], imgs_per_s={k: TRAIN_BATCH / v for k, v in r["s_step"].items()},
              run_wall_s=r["wall_s"], peak_memory_gb=r["peak_gb"], warm_up_r1_path_step=warm,
              phase_device_ms=phase_ms, losses={k: [x[k] for x in r["lines"]] for k in ("Generator", "Discriminator")},

@@ -23,6 +23,11 @@ The Generator's and the Discriminator's forwards set the policy with
 `tf32(...)`, which restores the global switches when it leaves. A backward
 runs after the forward has left, so training holds `tf32(False, False)` over
 each phase's forward and backward together (train/step.py).
+
+`EqualConv2d` and `ModulatedConv2d` convolve through ops/conv.py: without a
+gradient to record, `F.conv2d` / `F.conv_transpose2d`; with one, autograd
+Functions whose double backward (R1, the path penalty) is cuDNN's dgrad and
+wgrad. The bias is added outside the conv.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import conv
 from ..ops.fused_act import fused_leaky_relu
 from ..ops.upfirdn2d import setup_filter, upfirdn2d
 from ..parallel.mesh import gather_batch, local_rows
@@ -124,7 +130,7 @@ class EqualConv2d(nn.Module):
         self.padding = padding
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.conv2d(x, (self.weight * self.scale).to(x.dtype), stride=self.stride, padding=self.padding)
+        out = conv.conv2d(x, (self.weight * self.scale).to(x.dtype), stride=self.stride, padding=self.padding)
         return out if self.bias is None else out + self.bias.to(out.dtype).reshape(1, -1, 1, 1)
 
 
@@ -209,17 +215,18 @@ class ModulatedConv2d(nn.Module):
         s = self.modulation(style)  # [B, in]
         weight = (self.weight if weight is None else weight)[0] * self.scale  # [O, I, k, k], fp32
         if self.demodulate:
-            # fp32 whatever the synthesis dtype: rsqrt of near-cancelling sums
+            # in the parameters' dtype (fp32) whatever the synthesis dtype:
+            # rsqrt of near-cancelling sums
             w_sq = weight.square().sum(dim=(2, 3))  # [O, I]
-            demod = torch.rsqrt(s.float().square() @ w_sq.t() + self.eps)  # [B, O]
+            demod = torch.rsqrt(s.to(w_sq.dtype).square() @ w_sq.t() + self.eps)  # [B, O]
         x = x * s[:, :, None, None].to(x.dtype)
         w_shared = weight.to(x.dtype)
         fast = self.precision == "fast" and self.demodulate and h * w > 64 * 64
         with tf32(conv=fast, matmul=False):
             if self.upsample:
-                out = F.conv_transpose2d(x, w_shared.transpose(0, 1), stride=2)
+                out = conv.conv_transpose2d(x, w_shared.transpose(0, 1), stride=2)
             else:
-                out = F.conv2d(x, w_shared, padding=self.kernel_size // 2)
+                out = conv.conv2d(x, w_shared, padding=self.kernel_size // 2)
         if self.demodulate:
             out = out * demod[:, :, None, None].to(out.dtype)
         if self.upsample:

@@ -4,12 +4,13 @@ and dumps, the device monitor thread and spectral-norm tracking. The train
 CLI's `--profile`, `--monitor` and `--log_spec_norm` use them."""
 
 from .memory import memory_snapshot, save_device_memory_profile
-from .profiling import count, phase, profile_trace, recorded, reset
+from .profiling import count, current_span, phase, profile_trace, recorded, reset
 from .spectral import init_spectral_state, spectral_norms
 
 __all__ = [
     "phase",
     "count",
+    "current_span",
     "recorded",
     "reset",
     "profile_trace",

@@ -17,10 +17,14 @@ allocation.
   end (`time.perf_counter_ns`). With `device` a CUDA device, a pair of timing
   CUDA events on its current stream at entry and exit, with no synchronize;
   they are read when the summary is asked for.
-* `count(name, n=1)`: while on, adds `n` to the counter `name` of the
-  innermost span open on the thread; a span's counters hold what was counted
-  during it, its children's counts included. Without an open span it counts
-  nothing.
+* `count(name, n=1, span=None)`: while on, adds `n` to the counter `name` of
+  the innermost span open on the thread; a span's counters hold what was
+  counted during it, its children's counts included. Without an open span it
+  counts nothing. With `span`, a handle from `current_span()`, it adds to
+  that span from any thread: autograd runs a CUDA backward on a thread of its
+  own, where no span is open.
+* `current_span()`: the innermost span open on the calling thread while on,
+  else None.
 * Counter `cuda.syncs`: while on, the synchronizing CUDA calls the host makes
   (a copy between the device and pageable host memory, `.item()`, a stream
   synchronize: the calls that `torch.cuda.set_sync_debug_mode` flags, which
@@ -55,6 +59,9 @@ The program's spans (request id in brackets):
 * models/stylegan1.py, all device-timed: `sg1.synthesis` (the blocks and
   torgb, one a forward), `sg1.up` (each block's up-conv, blur and bias),
   `sg1.epilogue` (each noise, leaky-ReLU, instance norm and style).
+* ops/conv.py: counter `conv.second_order`, each conv double backward (R1
+  and the path penalty differentiated with respect to the parameters),
+  under the span open when its forward conv ran.
 No span name starts with `portbench.`: a benchmark keeps that prefix for its
 own spans.
 """
@@ -72,7 +79,7 @@ from typing import Any, Iterator, Optional
 
 import torch
 
-__all__ = ["count", "phase", "profile_trace", "recorded", "reset"]
+__all__ = ["count", "current_span", "phase", "profile_trace", "recorded", "reset"]
 
 _OFF = contextlib.nullcontext()
 _SYNC_MESSAGE = "called a synchronizing CUDA operation"
@@ -214,14 +221,22 @@ def phase(name: str, *, request: Any = None, device: Optional[torch.device] = No
     return _Span(name, request, device)
 
 
-def count(name: str, n: int = 1) -> None:
-    """Add `n` to the counter `name` of the innermost open span (while on)."""
+def current_span() -> Optional[_Span]:
+    """The innermost span open on the calling thread while on, else None."""
     if not _tracing():
-        return
+        return None
     stack = _rec.open.stack
-    if stack:
-        counters = stack[-1].counters
-        counters[name] = counters.get(name, 0) + n
+    return stack[-1] if stack else None
+
+
+def count(name: str, n: int = 1, span: Optional[_Span] = None) -> None:
+    """Add `n` to the counter `name` of `span` (a `current_span()` of any
+    thread), or else of the calling thread's innermost open span (while on)."""
+    if span is None:
+        span = current_span()
+        if span is None:
+            return
+    span.counters[name] = span.counters.get(name, 0) + n
 
 
 def recorded() -> dict[str, dict]:

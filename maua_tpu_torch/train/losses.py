@@ -8,7 +8,8 @@
 Both regularizers take a gradient with `create_graph=True`, so the caller can
 differentiate them again with respect to the networks' parameters: the
 double backward runs through the fused bias + leaky-ReLU gradient Function
-(ops/fused_act.py).
+(ops/fused_act.py), upfirdn2d's Function (ops/upfirdn2d.py) and the convs'
+Functions (ops/conv.py), whose weight term is cuDNN's wgrad.
 """
 
 from __future__ import annotations

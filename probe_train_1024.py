@@ -8,10 +8,14 @@ JAX package's flagship training configuration (1024^2, batch 12, channel
 multiplier 2, channel_max 512, constant input, ADA with the fft and 1x-grid
 warps, reg_chunks 3, remat_synth; bf16 unless --fp32) from random weights
 and random reals: one warm-up step with R1 and the path penalty, then each
-phase once more under torch.profiler with the input shapes recorded. For each
-phase it prints the device time of the phase and its operators with the
-most device time (self CUDA time, grouped by operator and input shapes),
-and the card's name and power limit. Needs a card; prints nothing else.
+phase once more unprofiled and once under torch.profiler with the input
+shapes recorded. For each phase it prints the host ms until the phase returns
+and the wall ms until the card is done (unprofiled, from an idle card), the
+device time of the phase, its operators with the most device time (self CUDA
+time, grouped by operator and input shapes), its kernels with the most device
+time and its operators with the most host time (self CPU time), and the
+card's name and power limit.
+Needs a card; prints nothing else.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -34,6 +39,28 @@ def top_ops(prof, n: int = 8) -> list:
             dev_us = getattr(ev, "self_cuda_time_total", 0)
         if dev_us > 0 and not str(ev.device_type).endswith("CUDA"):
             rows.append(dict(op=ev.key, shapes=str(ev.input_shapes)[:200], device_ms=dev_us / 1e3, calls=ev.count))
+    return sorted(rows, key=lambda r: -r["device_ms"])[:n]
+
+
+def top_host(prof, n: int = 8) -> list:
+    rows = [dict(op=ev.key[:80], self_cpu_ms=ev.self_cpu_time_total / 1e3, calls=ev.count)
+            for ev in prof.key_averages() if not str(ev.device_type).endswith("CUDA")]
+    return sorted(rows, key=lambda r: -r["self_cpu_ms"])[:n]
+
+
+def host_and_wall_ms(fn) -> tuple[float, float]:
+    """(ms until fn returns, ms until the card has finished), from an idle card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3
+
+
+def top_kernels(prof, n: int = 8) -> list:
+    rows = [dict(kernel=ev.key[:120], device_ms=getattr(ev, "self_device_time_total", 0) / 1e3, calls=ev.count)
+            for ev in prof.key_averages() if str(ev.device_type).endswith("CUDA")]
     return sorted(rows, key=lambda r: -r["device_ms"])[:n]
 
 
@@ -70,12 +97,14 @@ def main() -> int:
     out = {"device": smi, "config": "fp32_exact" if args.fp32 else "bf16", "phases": {}}
     with tf32(conv=False, matmul=False):
         for name, fn in calls.items():
+            host_ms, wall_ms = host_and_wall_ms(fn)
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
                 fn()
                 torch.cuda.synchronize()
             kernels_ms = sum(getattr(ev, "self_device_time_total", 0) for ev in prof.key_averages()
                              if str(ev.device_type).endswith("CUDA")) / 1e3
-            out["phases"][name] = dict(kernel_ms=kernels_ms, top_ops=top_ops(prof))
+            out["phases"][name] = dict(kernel_ms=kernels_ms, host_ms=host_ms, wall_ms=wall_ms, top_ops=top_ops(prof),
+                                       top_kernels=top_kernels(prof), top_host=top_host(prof))
     print(smi)
     print(json.dumps(out, indent=1))
     if args.out:
